@@ -1,0 +1,24 @@
+"""swift3drenderer_tpu_torch — the renderer of ``swift3drenderer_tpu`` on
+PyTorch, with its TPU kernel rewritten by hand in CUDA C++ for Hopper.
+
+The package imports torch and numpy only: the numpy modules it shares with the
+JAX package (config, camera, scene container and factories, textures) are kept
+here as copies. Entry points default to ``device="cuda"``; pass
+``device="cpu"`` to run the plain PyTorch version of every kernel.
+"""
+
+from .camera import Camera, Input
+from .config import DEFAULT_CONFIG, RenderConfig
+from .renderer import Renderer
+from .utils.databin import Scene, dump_scene, load_scene
+
+__all__ = [
+    "Camera",
+    "DEFAULT_CONFIG",
+    "Input",
+    "RenderConfig",
+    "Renderer",
+    "Scene",
+    "dump_scene",
+    "load_scene",
+]

@@ -1,0 +1,77 @@
+"""The port's CUDA kernel on the card: ``raster_flat_nearest`` against its
+plain PyTorch version, and the CUDA renderer against the CPU one.
+
+Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
+and skips without one. The file imports neither JAX nor the JAX package, so it
+runs where only PyTorch is installed, without tests/conftest.py (which imports
+JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import swift3drenderer_tpu_torch as port
+from swift3drenderer_tpu_torch.models import SCENES
+from swift3drenderer_tpu_torch.ops import raster as tr
+from swift3drenderer_tpu_torch.renderer import build_setup, scene_to_device
+
+W, H = 320, 240
+RAGGED = (333, 217)      # neither a multiple of the 32 x 8 tile
+BG = port.DEFAULT_CONFIG.background_packed
+
+
+def flight(n):
+    """bench.py's flight: one step forward and a turn per frame."""
+    cam = port.Camera()
+    return [cam.update(port.Input(up=1.0, mouse=(2.0 * i, 0.0)),
+                       force_update=(i == 0)).copy() for i in range(n)]
+
+
+def need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(W, H), RAGGED])
+def test_kernel_matches_plain_on_cuda(size):
+    """The CUDA kernel against its plain version on the card, bit for bit:
+    both round every operation alike."""
+    need_card()
+    w, h = size
+    dev = scene_to_device(SCENES["default"](seed=0), "cuda")
+    for m in flight(12)[::4]:
+        setup = build_setup(dev, torch.as_tensor(m, device="cuda"), width=w,
+                            height=h, config=port.DEFAULT_CONFIG)
+        ids, counts = tr.bin_triangles(setup, width=w, height=h,
+                                       tile_h=tr.TILE_H, tile_w=tr.TILE_W)
+        trf, tri = tr.pack_setup_tables(setup)
+        before = tr.raster_flat_nearest.launches
+        pk, dk = tr.raster_flat_nearest(counts, ids, trf, tri, dev["textures"],
+                                        width=w, height=h, background=BG)
+        pp, dp = tr.raster_flat_nearest_plain(counts, ids, trf, tri,
+                                              dev["textures"], width=w,
+                                              height=h, background=BG)
+        torch.cuda.synchronize()
+        assert tr.raster_flat_nearest.launches == before + 1
+        assert torch.equal(pk, pp) and torch.equal(dk, dp)
+        assert bool((pk != BG).any())
+
+
+@pytest.mark.cuda
+def test_cuda_renderer_equals_cpu_renderer():
+    """Every op of the port rounds alike on the card and the CPU, so the two
+    renderers agree bit for bit, ragged frame sizes included."""
+    need_card()
+    scene = SCENES["default"](seed=0)
+    on_card = port.Renderer(scene, device="cuda")
+    on_cpu = port.Renderer(scene, device="cpu")
+    for m in flight(12):
+        for w, h in ((W, H), RAGGED):
+            pg, dg = on_card.render(m, w, h)
+            pc, dc = on_cpu.render(m, w, h)
+            np.testing.assert_array_equal(pg, pc)
+            np.testing.assert_array_equal(dg, dc)
