@@ -6,19 +6,28 @@
 Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a);
-  3. hold each kernel against its plain PyTorch version on the card, on the
-     default scene's tables at 1920x1080 and 3840x2160, and the other scene
-     families at a ragged 1366x768;
-  4. drive the main path — Renderer(default_scene(seed=0), device="cuda") over
-     bench.py's 20-pose flight at both resolutions — with the launch counts
-     set to 0 just before and read just after, and hold its output against the
-     plain CPU path on small frames (one of them ragged);
+  3. hold each kernel against its plain PyTorch version on the card, bit for
+     bit: raster_flat_nearest on the default scene's tables at 1920x1080 and
+     3840x2160 and the other small scene families at a ragged 1366x768;
+     raster_segmented_nearest on stress_scene(objects=840) at both sizes,
+     regular_floor at 1366x768, stress100k at 1366x768 and 1920x1080, and
+     against raster_flat_nearest on the default scene;
+  4. drive the main paths through Renderer(..., device="cuda"), each with the
+     launch counts set to 0 just before and read just after: the default
+     scene and the 840-object stress field over bench.py's 20-pose flight at
+     both sizes, stress100k over its first 5 poses at 1920x1080; and hold the
+     output against the plain CPU path on small frames (one of them ragged);
   5. time, with CUDA events after a warm-up: render_device per frame, the
      front-end stages, each kernel (with the L2 cache cold, as a frame finds
      it) and its plain version, beside the least time the card could take
-     for the same work;
-  6. the share of the flight's wall time the card is busy, and each kernel's
-     device time per frame in the flight (torch.profiler).
+     for the same work; the segmented binner's entries, broadband slots
+     and sort time for several K; and the default scene through either
+     route (flat, or segmented with the flat route's slot limit lifted):
+     frames (bit-equal), binners and kernels;
+  6. the share of the flight's wall time the card is busy, each kernel's
+     device time per frame in the flight, and the device-to-host copies the
+     flight makes (must be none), from torch.profiler; and each route's
+     device time per frame of the default scene's flight.
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -37,21 +46,25 @@ import numpy as np
 
 RESOLUTIONS = ((1920, 1080), (3840, 2160))
 FLIGHT_POSES = 20          # bench.py's flight: Input(up=1.0, mouse=(2.0*i, 0))
+POSES_100K = 5             # stress100k: the flight's first poses, at 1080p
 SMALL = (320, 240)         # the CPU reference frame size
 RAGGED_SMALL = (333, 217)  # neither a multiple of the 32 x 8 tile
 RAGGED = (1366, 768)       # 1366 is not a multiple of 32
+STRESS_OBJECTS = 840       # bench.py's stress row: 10,083 triangles
+SEG_K_SWEEP = (2, 4, 8, 16, 32)
 MISMATCH_BOUND = 5e-4      # test_pallas_matches_xla's bound, tol 1
 DEPTH_RTOL = 1e-4
 
 # Published NVIDIA H100 SXM peaks (data sheet; at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
-# Arithmetic of raster_flat_nearest, counted from its source: 12 flops for the
-# three edge functions and 5 for 1/z per (pixel, binned slot); about 100 for
-# the winner's shading (weights, three interpolations, three normalisations,
-# headlight, level select and pack).
+# Arithmetic of the raster kernels, counted from their source: 12 flops for
+# the three edge functions and 5 for 1/z per (pixel, slot whose bbox holds
+# the pixel); about 100 for the winner's shading (weights, three
+# interpolations, three normalisations, headlight, level select and pack).
 VIS_FLOPS = 17
 SHADE_FLOPS = 100
+TABLE_WORDS = 43 + 7       # the f32 and i32 table rows of one slot
 
 
 class SmokeFailure(Exception):
@@ -83,7 +96,8 @@ def max_channel_err(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def compare(pix_a, depth_a, pix_b, depth_b, what: str) -> dict:
-    """Hold one (pixels, depth) pair against another; raise past the bounds."""
+    """Hold one (pixels, depth) pair against another: raise past the bounds,
+    or where the two are not equal bit for bit."""
     pa = pix_a.cpu().numpy().view(np.uint32) if hasattr(pix_a, "cpu") else pix_a
     pb = pix_b.cpu().numpy().view(np.uint32) if hasattr(pix_b, "cpu") else pix_b
     da = depth_a.cpu().numpy() if hasattr(depth_a, "cpu") else depth_a
@@ -95,9 +109,11 @@ def compare(pix_a, depth_a, pix_b, depth_b, what: str) -> dict:
     out = {"pixel_mismatch": mis, "max_channel_err": max_channel_err(pa, pb),
            "depth_max_abs_err": float(np.max(np.abs(da - db))),
            "depth_max_rel_err": rel,
-           "coverage_differs": int(((da > 0) != (db > 0)).sum())}
+           "coverage_differs": int(((da > 0) != (db > 0)).sum()),
+           "bit_equal": bool(np.array_equal(pa, pb) and np.array_equal(da, db))}
     check(mis < MISMATCH_BOUND, f"{what}: pixel mismatch {mis} >= {MISMATCH_BOUND}")
     check(rel <= DEPTH_RTOL, f"{what}: depth rel err {rel} > {DEPTH_RTOL}")
+    check(out["bit_equal"], f"{what}: not bit-equal ({json.dumps(out)})")
     return out
 
 
@@ -143,12 +159,13 @@ def time_ms(torch, fn, reps: int, warmup: int = 5, windows: int = 5) -> float:
     return statistics.median(per_window)
 
 
-def device_busy(torch, fn):
-    """Share of a window's wall time the card spends in kernels, the number
-    of kernels launched, and each kernel's device time (µs summed over the
-    window, by name), from the device-side events of a
-    torch.profiler trace. Returns ("not measured", 0, {}) if the trace holds
-    no device time."""
+def device_busy(torch, fn) -> dict:
+    """From the events of a torch.profiler trace of one call of ``fn``: the
+    share of its wall time the card spends in kernels, the number of kernels
+    launched, each kernel's device time (µs summed over the window, by name),
+    and the device-to-host copies and scalar reads (``_local_scalar_dense``)
+    the host made. ``busy`` is "not measured" if the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,16 +177,23 @@ def device_busy(torch, fn):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_kernel = {}
-    launched = 0
+    launched = d2h = scalar_reads = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            if "DtoH" in e.name or "Device -> Pageable" in e.name:
+                d2h += 1
+                continue
+            if e.name.startswith("Memcpy") or e.name.startswith("Memset"):
+                continue
             launched += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
+        elif e.name in ("aten::_local_scalar_dense", "aten::item"):
+            scalar_reads += 1
     total = sum(per_kernel.values())
-    if total <= 0:
-        return "not measured", 0, {}
-    return total / wall_us, launched, per_kernel
+    return {"busy": total / wall_us if total > 0 else "not measured",
+            "launched": launched, "per_kernel": per_kernel, "d2h": d2h,
+            "scalar_reads": scalar_reads}
 
 
 def flight(Camera, Input, n: int):
@@ -178,37 +202,76 @@ def flight(Camera, Input, n: int):
                        force_update=(i == 0)).copy() for i in range(n)]
 
 
-def raster_bound(raster, counts, ids, trf, tri, textures, width,
-                 height) -> dict:
-    """Least time the card could take for raster_flat_nearest on these
+def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
+               textures, width, height, list_bytes) -> dict:
+    """Least time the card could take for a raster kernel's work on these
     inputs: the larger of bytes over HBM rate and fp32 flops over the fp32
-    rate. Bytes, as this frame's data needs them: the tile counts; the binned
-    entries of ``ids``; the table columns of the binned slots; the distinct
-    atlas words the textured winners fetch (found by the plain version);
-    both output planes written once. Flops: the binned slots of each pixel's
-    tile, plus the shading of every pixel with a winner."""
+    rate. Bytes, as this frame's data needs them: the per-tile list bounds
+    (``list_bytes``); the ``ids_read`` slot ids the tiles' lists hold; the
+    table columns of the distinct binned ``slots``; the distinct atlas words
+    the textured winners fetch (found by the plain version); both output
+    planes written once. Flops: for each binned slot, the pixels its bbox
+    holds (the only pixels whose edge functions the frame needs); plus the
+    shading of every pixel with a winner. ``tile_flops`` is the coarser count
+    of the kernels' 32 x 8 tiles, for comparison: each tile's pixels times
+    ``tile_slots``, the slots whose bbox touches the tile."""
     tile_w, tile_h = raster.TILE_W, raster.TILE_H
     ntx = -(-width // tile_w)
-    c = counts.reshape(-1).to("cpu").numpy().astype(np.int64)
-    ty, tx = np.divmod(np.arange(c.size), ntx)
+    ty, tx = np.divmod(np.arange(tile_slots.size), ntx)
     tile_px = (np.minimum(tile_w, width - tx * tile_w)
                * np.minimum(tile_h, height - ty * tile_h))
-    best, win = raster.visibility_plain(counts, ids, trf, tri, width=width,
-                                        height=height)
+    slots = slots.long()
+    x0, x1, y0, y1 = (tri[r][slots].long() for r in (
+        raster._XMIN, raster._XMAX, raster._YMIN, raster._YMAX))
+    bbox_px = int(((x1.clamp(max=width - 1) - x0.clamp(min=0) + 1).clamp(min=0)
+                   * (y1.clamp(max=height - 1) - y0.clamp(min=0) + 1).clamp(min=0)
+                   ).sum())
     covered = int((win >= 0).sum().item())
-    binned = ids.to("cpu").numpy()[np.arange(ids.shape[1])[None, :] < c[:, None]]
-    slots = np.unique(binned).size
     texels = int(raster.fetched_texels(best, win, trf, tri,
                                        textures.shape[0]).numel())
-    nbytes = (c.size * 4 + int(c.sum()) * 4 + slots * (trf.shape[0]
-              + tri.shape[0]) * 4 + texels * 4 + width * height * 8)
-    flops = VIS_FLOPS * int((c * tile_px).sum()) + SHADE_FLOPS * covered
+    nbytes = (list_bytes + ids_read * 4 + slots.numel() * TABLE_WORDS * 4
+              + texels * 4 + width * height * 8)
+    flops = VIS_FLOPS * bbox_px + SHADE_FLOPS * covered
+    tile_flops = (VIS_FLOPS * int((tile_slots * tile_px).sum())
+                  + SHADE_FLOPS * covered)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / FP32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_flops),
             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
             "bytes": nbytes, "flops": flops, "atlas_words_fetched": texels,
-            "binned_slots_per_pixel": float((c * tile_px).sum() / (width * height))}
+            "bbox_slots_per_pixel": bbox_px / (width * height),
+            "tile_flops": tile_flops,
+            "tile_bound_ms": max(t_bytes, tile_flops / FP32_FLOPS_PER_S * 1e3),
+            "binned_slots_per_pixel": float((tile_slots * tile_px).sum()
+                                            / (width * height))}
+
+
+def flat_bound(raster, counts, ids, trf, tri, textures, width, height) -> dict:
+    """work_bound of raster_flat_nearest: each tile's list is its binned
+    slots."""
+    c = counts.reshape(-1).to("cpu").numpy().astype(np.int64)
+    best, win = raster.visibility_plain(counts, ids, trf, tri, width=width,
+                                        height=height)
+    binned = ids.new_tensor(raster._binned_slots(counts, ids))
+    return work_bound(raster, c, int(c.sum()), binned, best, win, trf, tri,
+                      textures, width, height, c.size * 4)
+
+
+def segmented_bound(raster, binned, trf, tri, textures, width, height) -> dict:
+    """work_bound of raster_segmented_nearest: a tile's slots are its segment
+    and the broadband slots whose bbox touches it; the broadband walk over
+    slots that miss the tile is the design's cost, not the work's."""
+    ids, starts, counts, bb, bb_count = binned
+    tiles, slots = raster.segmented_pairs(*binned, tri, width=width,
+                                          height=height)
+    ntiles = counts.numel()
+    tile_slots = np.bincount(tiles.to("cpu").numpy(), minlength=ntiles)
+    entries, wide = int(counts.sum().item()), int(bb_count[0].item())
+    best, win = raster.visibility_segmented_plain(*binned, trf, tri,
+                                                  width=width, height=height)
+    out = work_bound(raster, tile_slots, entries + wide, slots.unique(), best,
+                     win, trf, tri, textures, width, height, ntiles * 8 + 4)
+    return {**out, "entries": entries, "broadband_slots": wide}
 
 
 def run() -> dict:
@@ -239,98 +302,165 @@ def run() -> dict:
     print(f"build: csrc/raster.cu {'compiled' if log else 'already built'} "
           f"in {build_s:.2f} s", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             print(f"  {line.strip()}")
 
     dev = torch.device("cuda")
     cfg = DEFAULT_CONFIG
     bg = cfg.background_packed
-    scene = default_scene(seed=0)
-    dev_arrays = scene_to_device(scene, dev)
     poses = flight(Camera, Input, FLIGHT_POSES)
+    scenes = {"default": default_scene(seed=0),
+              "stress840": SCENES["stress"](seed=0, objects=STRESS_OBJECTS),
+              "stress100k": SCENES["stress100k"](seed=0)}
+    arrays = {name: scene_to_device(sc, dev) for name, sc in scenes.items()}
+    for name, sc in scenes.items():
+        print(f"scene {name}: {sc.num_triangles} triangles, "
+              f"{2 * sc.num_triangles} slots", flush=True)
 
-    def tables(m, width, height, arrays=dev_arrays):
-        """The setup table of one frame, and the kernel's inputs from it."""
-        mt = torch.as_tensor(m, device=dev)
-        setup = build_setup(arrays, mt, width=width, height=height,
-                            config=cfg)
+    def setup_of(m, width, height, arr):
+        return build_setup(arr, torch.as_tensor(m, device=dev), width=width,
+                           height=height, config=cfg)
+
+    def flat_tables(m, width, height, arr):
+        """The setup table of one frame, and the flat kernel's inputs."""
+        setup = setup_of(m, width, height, arr)
         ids, counts = raster.bin_triangles(setup, width=width, height=height,
                                            tile_h=raster.TILE_H,
                                            tile_w=raster.TILE_W)
         trf, tri = raster.pack_setup_tables(setup)
         return setup, (counts, ids, trf, tri)
 
-    # ---- 3. kernel vs plain version on the card ----
-    vs_plain = {}
-    for width, height in RESOLUTIONS:
-        for pose in (0, FLIGHT_POSES - 1):
-            _, args = tables(poses[pose], width, height)
-            kw = dict(width=width, height=height, background=bg)
-            pk, dk = raster.raster_flat_nearest(*args, dev_arrays["textures"], **kw)
-            pp, dp = raster.raster_flat_nearest_plain(*args, dev_arrays["textures"], **kw)
-            torch.cuda.synchronize()
-            res = compare(pk, dk, pp, dp,
-                          f"raster_flat_nearest vs plain {width}x{height} pose {pose}")
-            vs_plain[(width, height, pose)] = res
-            print(f"kernel vs plain {width}x{height} pose {pose}: "
-                  f"{json.dumps(res)}", flush=True)
+    def seg_tables(m, width, height, arr, k=raster.SEG_K):
+        """The setup table of one frame, and the segmented kernel's inputs:
+        (ids, starts, counts, bb, bb_count), trf, tri."""
+        setup = setup_of(m, width, height, arr)
+        trf, tri = raster.pack_setup_tables(setup)
+        return setup, raster.bin_segments(setup, width=width, height=height,
+                                          k=k), trf, tri
 
-    # The other scene families, flown into (near-plane splits), at a frame
-    # width that leaves a ragged column of tiles.
+    # ---- 3. kernels vs plain versions on the card ----
+    flat_errs, seg_errs = {}, {}
+
+    def report(store, key, res, what):
+        store[key] = res
+        print(f"{what}: {json.dumps(res)}", flush=True)
+
+    for width, height in RESOLUTIONS:
+        kw = dict(width=width, height=height, background=bg)
+        for pose in (0, FLIGHT_POSES - 1):
+            setup, args = flat_tables(poses[pose], width, height,
+                                      arrays["default"])
+            tex = arrays["default"]["textures"]
+            pk, dk = raster.raster_flat_nearest(*args, tex, **kw)
+            pp, dp = raster.raster_flat_nearest_plain(*args, tex, **kw)
+            what = f"raster_flat_nearest vs plain {width}x{height} pose {pose}"
+            report(flat_errs, (width, height, pose),
+                   compare(pk, dk, pp, dp, what), what)
+            # The segmented kernel on the same table: the flat kernel's frame.
+            binned = raster.bin_segments(setup, width=width, height=height)
+            ps, ds = raster.raster_segmented_nearest(*binned, *args[2:], tex, **kw)
+            what = (f"raster_segmented_nearest vs raster_flat_nearest default "
+                    f"{width}x{height} pose {pose}")
+            report(seg_errs, ("default", width, height, pose),
+                   compare(ps, ds, pk, dk, what), what)
+
+    # The other small scene families, flown into (near-plane splits), at a
+    # frame width that leaves a ragged column of tiles.
     cam = Camera()
     into = [cam.update(Input(up=2.0), force_update=(i == 0)).copy()
             for i in range(6)]
     for name in ("tetrahedron", "icosahedron", "anisotropic", "clipping"):
-        arrays = scene_to_device(SCENES[name](seed=0), dev)
+        arr = scene_to_device(SCENES[name](seed=0), dev)
+        kw = dict(width=RAGGED[0], height=RAGGED[1], background=bg)
         for pose in (0, 5):
-            _, args = tables(into[pose], *RAGGED, arrays=arrays)
-            kw = dict(width=RAGGED[0], height=RAGGED[1], background=bg)
-            pk, dk = raster.raster_flat_nearest(*args, arrays["textures"], **kw)
-            pp, dp = raster.raster_flat_nearest_plain(*args, arrays["textures"], **kw)
-            res = compare(pk, dk, pp, dp, f"raster_flat_nearest vs plain "
-                          f"{name} {RAGGED[0]}x{RAGGED[1]} pose {pose}")
-            vs_plain[(name, pose)] = res
-            print(f"kernel vs plain {name} {RAGGED[0]}x{RAGGED[1]} pose {pose}: "
-                  f"{json.dumps(res)}", flush=True)
+            _, args = flat_tables(into[pose], *RAGGED, arr)
+            pk, dk = raster.raster_flat_nearest(*args, arr["textures"], **kw)
+            pp, dp = raster.raster_flat_nearest_plain(*args, arr["textures"], **kw)
+            what = (f"raster_flat_nearest vs plain {name} "
+                    f"{RAGGED[0]}x{RAGGED[1]} pose {pose}")
+            report(flat_errs, (name, pose), compare(pk, dk, pp, dp, what), what)
 
-    # ---- 4. the main path ----
-    renderer = Renderer(scene, device="cuda")
-    raster.raster_flat_nearest.launches = 0
-    frames = {}
-    for width, height in RESOLUTIONS:
-        frames[(width, height)] = [renderer.render_device(m, width, height)
-                                   for m in poses]
-    torch.cuda.synchronize()
-    launches = raster.raster_flat_nearest.launches
-    n_frames = FLIGHT_POSES * len(RESOLUTIONS)
-    print(f"main path: {n_frames} frames, raster_flat_nearest launches "
-          f"{launches}", flush=True)
-    check(launches == n_frames,
-          f"raster_flat_nearest launched {launches} times for {n_frames} frames")
-    for (width, height), outs in frames.items():
-        for pix, depth in outs:
-            check(tuple(pix.shape) == (height, width) and pix.dtype == torch.int32,
-                  f"pixels {tuple(pix.shape)} {pix.dtype} at {width}x{height}")
-            check(bool(torch.isfinite(depth).all()), "non-finite depth")
-            check(bool((depth >= 0).all()), "negative depth")
-        drawn = float((outs[0][0] != bg).float().mean())
-        print(f"  {width}x{height} pose 0: {drawn:.3f} of pixels drawn")
-        check(drawn > 0.2, f"only {drawn} of the frame drawn at {width}x{height}")
-    cpu_renderer = Renderer(scene, device="cpu")
-    for width, height in (SMALL, RAGGED_SMALL):
-        for pose in (0, 10, FLIGHT_POSES - 1):
-            pg, dg = renderer.render(poses[pose], width, height)
-            pc, dc = cpu_renderer.render(poses[pose], width, height)
-            res = compare(pg, dg, pc, dc,
-                          f"cuda vs cpu renderer {width}x{height} pose {pose}")
-            print(f"cuda vs cpu renderer {width}x{height} pose {pose}: "
-                  f"{json.dumps(res)}", flush=True)
+    # The large scenes through the segmented kernel.
+    seg_cases = [("stress840", w, h, pose) for w, h in RESOLUTIONS
+                 for pose in (0, FLIGHT_POSES - 1)]
+    seg_cases += [("regular_floor", *RAGGED, 0), ("stress100k", *RAGGED, 0),
+                  ("stress100k", *RESOLUTIONS[0], 0)]
+    arrays["regular_floor"] = scene_to_device(SCENES["regular_floor"](seed=0), dev)
+    for name, width, height, pose in seg_cases:
+        _, binned, trf, tri = seg_tables(poses[pose], width, height, arrays[name])
+        tex = arrays[name]["textures"]
+        kw = dict(width=width, height=height, background=bg)
+        pk, dk = raster.raster_segmented_nearest(*binned, trf, tri, tex, **kw)
+        pp, dp = raster.raster_segmented_nearest_plain(*binned, trf, tri, tex, **kw)
+        what = (f"raster_segmented_nearest vs plain {name} {width}x{height} "
+                f"pose {pose} (S {trf.shape[1]}, entries "
+                f"{int(binned[2].sum())}, broadband {int(binned[4][0])})")
+        report(seg_errs, (name, width, height, pose),
+               compare(pk, dk, pp, dp, what), what)
+
+    # ---- 4. the main paths ----
+    def drive(name, renderer, runs, want):
+        """Render ``runs`` ((width, height), poses) with both launch counts
+        set to 0 just before; check the counts just after against ``want``
+        (flat, segmented) launches per frame, and each frame."""
+        raster.raster_flat_nearest.launches = 0
+        raster.raster_segmented_nearest.launches = 0
+        frames = [((w, h), renderer.render_device(m, w, h))
+                  for (w, h), ms in runs for m in ms]
+        torch.cuda.synchronize()
+        got = (raster.raster_flat_nearest.launches,
+               raster.raster_segmented_nearest.launches)
+        n = len(frames)
+        print(f"main path {name}: {n} frames, raster_flat_nearest launches "
+              f"{got[0]}, raster_segmented_nearest launches {got[1]}",
+              flush=True)
+        check(got == (want[0] * n, want[1] * n),
+              f"{name}: launches (flat, segmented) {got} for {n} frames")
+        for (w, h), (pix, depth) in frames:
+            check(tuple(pix.shape) == (h, w) and pix.dtype == torch.int32,
+                  f"{name}: pixels {tuple(pix.shape)} {pix.dtype} at {w}x{h}")
+            check(bool(torch.isfinite(depth).all()), f"{name}: non-finite depth")
+            check(bool((depth >= 0).all()), f"{name}: negative depth")
+        for (w, h), ms in runs:
+            pix = next(p for size, (p, _) in frames if size == (w, h))
+            drawn = float((pix != bg).float().mean())
+            print(f"  {name} {w}x{h} pose 0: {drawn:.3f} of pixels drawn")
+            check(drawn > 0.2, f"only {drawn} of the frame drawn at {w}x{h}")
+        return got
+
+    renderers = {name: Renderer(scenes[name], device="cuda")
+                 for name in ("default", "stress840", "stress100k")}
+    flat_launches, _ = drive("default", renderers["default"],
+                             [(size, poses) for size in RESOLUTIONS], (1, 0))
+    seg_launches = drive("stress840", renderers["stress840"],
+                         [(size, poses) for size in RESOLUTIONS], (0, 1))[1]
+    seg_launches += drive("stress100k", renderers["stress100k"],
+                          [(RESOLUTIONS[0], poses[:POSES_100K])], (0, 1))[1]
+
+    small_scenes = {"default": scenes["default"],
+                    "stress128": SCENES["stress"](seed=0, objects=128)}
+    for name, sc in small_scenes.items():
+        on_card = (renderers["default"] if name == "default"
+                   else Renderer(sc, device="cuda"))
+        on_cpu = Renderer(sc, device="cpu")
+        sizes = (SMALL, RAGGED_SMALL) if name == "default" else (SMALL,)
+        for width, height in sizes:
+            for pose in (0, 10, FLIGHT_POSES - 1):
+                pg, dg = on_card.render(poses[pose], width, height)
+                pc, dc = on_cpu.render(poses[pose], width, height)
+                what = f"cuda vs cpu renderer {name} {width}x{height} pose {pose}"
+                res = compare(pg, dg, pc, dc, what)
+                print(f"{what}: {json.dumps(res)}", flush=True)
 
     # ---- 5. timings ----
-    shapes = []
-    for width, height in RESOLUTIONS:
+    rows = [("default", size, poses) for size in RESOLUTIONS]
+    rows += [("stress840", size, poses) for size in RESOLUTIONS]
+    rows += [("stress100k", RESOLUTIONS[0], poses[:POSES_100K])]
+    table = []
+
+    def frame_times(renderer, ms, width, height):
         per_frame = []
-        for m in poses:
+        for m in ms:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -338,82 +468,202 @@ def run() -> dict:
             end.record()
             end.synchronize()
             per_frame.append(start.elapsed_time(end))
-        frame_ms = statistics.median(per_frame)
-        mt = torch.as_tensor(poses[0], device=dev)
-        setup, (counts, ids, trf, tri) = tables(poses[0], width, height)
-        tex = dev_arrays["textures"]
-        kw = dict(width=width, height=height, background=bg)
-        stage_ms = {
-            "build_setup": time_ms(torch, lambda: build_setup(
-                dev_arrays, mt, width=width, height=height, config=cfg), 50),
-            "bin_triangles": time_ms(torch, lambda: raster.bin_triangles(
-                setup, width=width, height=height, tile_h=raster.TILE_H,
-                tile_w=raster.TILE_W), 50),
-            "pack_setup_tables": time_ms(
-                torch, lambda: raster.pack_setup_tables(setup), 50),
-        }
-        kernel_ms = time_cold_ms(torch, lambda: raster.raster_flat_nearest(
-            counts, ids, trf, tri, tex, **kw))
-        plain_ms = time_ms(torch, lambda: raster.raster_flat_nearest_plain(
-            counts, ids, trf, tri, tex, **kw), 2, warmup=1)
-        bound = raster_bound(raster, counts, ids, trf, tri, tex, width, height)
-        row = {"at": f"{width}x{height}", "frame_ms_median": frame_ms,
-               "frame_ms_min": min(per_frame), "frame_ms_max": max(per_frame),
-               "stage_ms": stage_ms, "ms": kernel_ms, "plain_ms": plain_ms,
-               **bound}
-        shapes.append(row)
-        print(f"timing {width}x{height}: {json.dumps(row)}", flush=True)
+        return per_frame
 
-    # ---- 6. device busy share of the flight, last: profiling
-    # leaves host-side overhead behind it that would inflate the timings ----
-    for row, (width, height) in zip(shapes, RESOLUTIONS):
-        busy, launched, per_kernel = device_busy(torch, lambda: [
-            renderer.render_device(m, width, height) for m in poses])
-        row["device_busy_share"] = busy
-        row["device_kernels_per_frame"] = launched / FLIGHT_POSES
-        # The kernel's device time per frame as the flight runs it.
-        in_flight = sum(us for name, us in per_kernel.items()
-                        if "raster_flat_nearest" in name)
-        row["ms_in_flight"] = (in_flight / FLIGHT_POSES / 1e3 if in_flight
+    for name, (width, height), ms in rows:
+        renderer, arr = renderers[name], arrays[name]
+        per_frame = frame_times(renderer, ms, width, height)
+        mt = torch.as_tensor(ms[0], device=dev)
+        tex = arr["textures"]
+        kw = dict(width=width, height=height, background=bg)
+        stage_ms = {"build_setup": time_ms(torch, lambda: build_setup(
+            arr, mt, width=width, height=height, config=cfg), 20)}
+        if name == "default":
+            kernel = "raster_flat_nearest"
+            setup, (counts, ids, trf, tri) = flat_tables(ms[0], width, height, arr)
+            stage_ms["bin_triangles"] = time_ms(torch, lambda: raster.bin_triangles(
+                setup, width=width, height=height, tile_h=raster.TILE_H,
+                tile_w=raster.TILE_W), 20)
+            args = (counts, ids, trf, tri, tex)
+            bound = flat_bound(raster, counts, ids, trf, tri, tex, width, height)
+            launch, plain = raster.raster_flat_nearest, raster.raster_flat_nearest_plain
+        else:
+            kernel = "raster_segmented_nearest"
+            setup, binned, trf, tri = seg_tables(ms[0], width, height, arr)
+            stage_ms["bin_segments"] = time_ms(torch, lambda: raster.bin_segments(
+                setup, width=width, height=height), 20)
+            args = (*binned, trf, tri, tex)
+            bound = segmented_bound(raster, binned, trf, tri, tex, width, height)
+            launch = raster.raster_segmented_nearest
+            plain = raster.raster_segmented_nearest_plain
+        stage_ms["pack_setup_tables"] = time_ms(
+            torch, lambda: raster.pack_setup_tables(setup), 20)
+        row = {"scene": name, "at": f"{width}x{height}", "kernel": kernel,
+               "slots": trf.shape[1], "frames": len(ms),
+               "frame_ms_median": statistics.median(per_frame),
+               "frame_ms_min": min(per_frame), "frame_ms_max": max(per_frame),
+               "stage_ms": stage_ms,
+               "ms": time_cold_ms(torch, lambda: launch(*args, **kw)),
+               "plain_ms": time_ms(torch, lambda: plain(*args, **kw), 2,
+                                   warmup=1),
+               **bound}
+        table.append(row)
+        print(f"timing {name} {width}x{height}: {json.dumps(row)}", flush=True)
+
+    # The segmented binner's K: entries, broadband slots, the sort and the
+    # kernel at pose 0 (the 32 x 8 tile is fixed by the kernel).
+    for name, (width, height), ms in rows[2:]:
+        arr = arrays[name]
+        setup = setup_of(ms[0], width, height, arr)
+        trf, tri = raster.pack_setup_tables(setup)
+        kw = dict(width=width, height=height, background=bg)
+        for k in SEG_K_SWEEP:
+            keys, big = raster.segment_keys(setup, width=width, height=height, k=k)
+            binned = raster.bin_segments(setup, width=width, height=height, k=k)
+            res = {"k": k, "entries": int(binned[2].sum()),
+                   "broadband_slots": int(binned[4][0]),
+                   "sort_us": 1e3 * time_ms(
+                       torch, lambda: torch.sort(keys, stable=True), 20),
+                   "bin_segments_ms": time_ms(torch, lambda: raster.bin_segments(
+                       setup, width=width, height=height, k=k), 20),
+                   "kernel_ms_cold": time_cold_ms(
+                       torch, lambda: raster.raster_segmented_nearest(
+                           *binned, trf, tri, arr["textures"], **kw), reps=20)}
+            print(f"seg_k {name} {width}x{height}: {json.dumps(res)}", flush=True)
+
+    # The default scene through either route, the segmented one forced by
+    # lifting the flat route's slot limit: the two frames (bit-equal), the
+    # flights interleaved flat, segmented, segmented, flat, and each route's
+    # binner and kernel at pose 0.
+    flat_max = raster.FLAT_MAX_SLOTS
+
+    def on_route(route, fn):
+        raster.FLAT_MAX_SLOTS = flat_max if route == "flat" else -1
+        try:
+            return fn()
+        finally:
+            raster.FLAT_MAX_SLOTS = flat_max
+
+    arr, tex = arrays["default"], arrays["default"]["textures"]
+    routes = {}
+    for width, height in RESOLUTIONS:
+        def fly(route):
+            return on_route(route, lambda: frame_times(
+                renderers["default"], poses, width, height))
+
+        flat_f, seg_f = fly("flat"), fly("segmented")
+        seg_f, flat_f = seg_f + fly("segmented"), flat_f + fly("flat")
+        pf, df = on_route("flat", lambda: renderers["default"].render_device(
+            poses[0], width, height))
+        ps, ds = on_route("segmented", lambda: renderers[
+            "default"].render_device(poses[0], width, height))
+        compare(ps, ds, pf, df, f"default scene frame, segmented vs flat "
+                                f"route {width}x{height}")
+        setup, (counts, ids, trf, tri) = flat_tables(poses[0], width, height, arr)
+        binned = raster.bin_segments(setup, width=width, height=height)
+        kw = dict(width=width, height=height, background=bg)
+        res = {"flat_frame_ms_median": statistics.median(flat_f),
+               "segmented_frame_ms_median": statistics.median(seg_f),
+               "bin_triangles_ms": time_ms(torch, lambda: raster.bin_triangles(
+                   setup, width=width, height=height, tile_h=raster.TILE_H,
+                   tile_w=raster.TILE_W), 20),
+               "bin_segments_ms": time_ms(torch, lambda: raster.bin_segments(
+                   setup, width=width, height=height), 20),
+               "flat_kernel_ms": time_cold_ms(
+                   torch, lambda: raster.raster_flat_nearest(
+                       counts, ids, trf, tri, tex, **kw)),
+               "segmented_kernel_ms": time_cold_ms(
+                   torch, lambda: raster.raster_segmented_nearest(
+                       *binned, trf, tri, tex, **kw)),
+               "entries": int(binned[2].sum()),
+               "broadband_slots": int(binned[4][0])}
+        routes[(width, height)] = res
+        print(f"route default {width}x{height}: {json.dumps(res)}", flush=True)
+
+    # ---- 6. device busy share of the flights, last: profiling leaves
+    # host-side overhead behind it that would inflate the timings ----
+    for row, (name, (width, height), ms) in zip(table, rows):
+        prof = device_busy(torch, lambda: [
+            renderers[name].render_device(m, width, height) for m in ms])
+        row["device_busy_share"] = prof["busy"]
+        row["device_kernels_per_frame"] = prof["launched"] / len(ms)
+        row["d2h_copies"] = prof["d2h"]
+        row["scalar_reads"] = prof["scalar_reads"]
+        in_flight = sum(us for k, us in prof["per_kernel"].items()
+                        if row["kernel"] in k)
+        row["ms_in_flight"] = (in_flight / len(ms) / 1e3 if in_flight
                                else "not measured")
         by_class = {}   # names cut to 60 characters group template instances
-        for name, us in per_kernel.items():
-            by_class[name[:60]] = by_class.get(name[:60], 0.0) + us
+        for k, us in prof["per_kernel"].items():
+            by_class[k[:60]] = by_class.get(k[:60], 0.0) + us
         top = dict(sorted(by_class.items(), key=lambda kv: kv[1],
-                          reverse=True)[:5])
-        print(f"profile {width}x{height}: device busy share {busy}, "
-              f"{launched / FLIGHT_POSES} kernels per frame, raster_flat_"
-              f"nearest {row['ms_in_flight']} ms per frame, top kernels "
-              f"(us over {FLIGHT_POSES} frames) {json.dumps(top)}", flush=True)
+                          reverse=True)[:6])
+        print(f"profile {name} {width}x{height}: device busy share "
+              f"{prof['busy']}, {row['device_kernels_per_frame']} kernels per "
+              f"frame, {row['kernel']} {row['ms_in_flight']} ms per frame, "
+              f"device-to-host copies {prof['d2h']}, scalar reads "
+              f"{prof['scalar_reads']}, top kernels (us over {len(ms)} frames) "
+              f"{json.dumps(top)}", flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"{name} {width}x{height}: the flight copied to the host "
+              f"({prof['d2h']} copies, {prof['scalar_reads']} scalar reads)")
 
-    errs = list(vs_plain.values())
-    main = shapes[0]
-    kernel_row = {
-        "name": "raster_flat_nearest",
-        "route": "cuda",
-        "source": "swift3drenderer_tpu_torch/csrc/raster.cu",
-        "replaces": "swift3drenderer_tpu/ops/raster_pallas.py:249",
-        "launches": launches,
-        "max_abs_err": max(e["max_channel_err"] for e in errs),
-        "depth_max_abs_err": max(e["depth_max_abs_err"] for e in errs),
-        "pixel_mismatch": max(e["pixel_mismatch"] for e in errs),
-        "tolerance": f"pixel mismatch < {MISMATCH_BOUND} at tol 1, depth rtol {DEPTH_RTOL}",
-        "at": main["at"],
-        "ms": main["ms"],
-        "ms_in_flight": main["ms_in_flight"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-        "shapes": [{k: r[k] for k in ("at", "ms", "ms_in_flight",
-                                      "plain_ms", "bound_ms",
-                                      "bound_by", "frame_ms_median",
-                                      "device_busy_share",
-                                      "device_kernels_per_frame")}
-                   for r in shapes],
-    }
+    for (width, height), res in routes.items():
+        for route in ("flat", "segmented"):
+            prof = on_route(route, lambda: device_busy(torch, lambda: [
+                renderers["default"].render_device(m, width, height)
+                for m in poses]))
+            res[f"{route}_device_us_per_frame"] = (
+                sum(prof["per_kernel"].values()) / len(poses))
+            res[f"{route}_kernels_per_frame"] = prof["launched"] / len(poses)
+            check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+                  f"default {width}x{height} {route} route: the flight copied "
+                  f"to the host")
+        print(f"route profile default {width}x{height}: {json.dumps(res)}",
+              flush=True)
+
+    def kernel_row(name, replaces, launches, errs, main_scene):
+        rows_k = [r for r in table if r["kernel"] == name]
+        main_at = "{} {}x{}".format(main_scene, *RESOLUTIONS[0])
+        main = next(r for r in rows_k if f"{r['scene']} {r['at']}" == main_at)
+        errs = list(errs.values())
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "swift3drenderer_tpu_torch/csrc/raster.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(e["max_channel_err"] for e in errs),
+            "depth_max_abs_err": max(e["depth_max_abs_err"] for e in errs),
+            "pixel_mismatch": max(e["pixel_mismatch"] for e in errs),
+            "frames_compared": len(errs),
+            "tolerance": "bit-equal (checked); bounds pixel mismatch < "
+                         f"{MISMATCH_BOUND} at tol 1, depth rtol {DEPTH_RTOL}",
+            "at": main_at,
+            "ms": main["ms"],
+            "ms_in_flight": main["ms_in_flight"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "shapes": [{k: r.get(k) for k in (
+                "scene", "at", "ms", "ms_in_flight", "plain_ms", "bound_ms",
+                "bound_by", "tile_bound_ms", "frame_ms_median",
+                "device_busy_share", "device_kernels_per_frame", "entries",
+                "broadband_slots")}
+                for r in rows_k],
+        }
+
+    kernels_line = [
+        kernel_row("raster_flat_nearest",
+                   "swift3drenderer_tpu/ops/raster_pallas.py:249",
+                   flat_launches, flat_errs, "default"),
+        kernel_row("raster_segmented_nearest",
+                   "swift3drenderer_tpu/ops/raster_pallas.py:430",
+                   seg_launches, seg_errs, "stress840"),
+    ]
     print(card)
-    print(json.dumps({"kernels": [kernel_row]}))
+    print(json.dumps({"kernels": kernels_line}))
     return {"ok": True, "device": {"platform": "gpu",
                                    "kind": torch.cuda.get_device_name(0),
                                    "count": torch.cuda.device_count()}}

@@ -1,7 +1,7 @@
-"""Build and load the port's hand-written CUDA kernel.
+"""Build and load the port's hand-written CUDA kernels.
 
-``csrc/raster.cu`` has a plain C interface (no PyTorch headers, so nvcc takes
-seconds) and is compiled at first use into
+``csrc/raster.cu`` holds both raster kernels behind a plain C interface (no
+PyTorch headers, so nvcc takes seconds) and is compiled at first use into
 ``swift3drenderer_tpu_torch/_build/raster-<hash>.so`` (listed in .gitignore),
 then loaded with ctypes. The hash covers the source and the flags, so an edit
 rebuilds.
@@ -67,7 +67,8 @@ def build() -> str:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded library of ``csrc/raster.cu``, built first if needed."""
+    """The loaded library of ``csrc/raster.cu`` (``raster_flat_nearest``,
+    ``raster_segmented_nearest``), built first if needed."""
     build()
     lib = ctypes.CDLL(library_path())
     lib.s3d_cuda_error_string.argtypes = [ctypes.c_int]

@@ -4,5 +4,8 @@ from .scene import (  # noqa: F401
     clipping_scene,
     default_scene,
     icosahedron_scene,
+    regular_floor_scene,
+    stress100k_scene,
+    stress_scene,
     tetrahedron_scene,
 )

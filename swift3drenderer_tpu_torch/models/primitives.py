@@ -3,10 +3,11 @@
 These reproduce the reference data generator's geometry families
 (reference data-generator/main.swift): the 30x30 textured floor quad (gen:190-216),
 the textured equilateral triangle (gen:74-106), flat-colored tetrahedra (gen:218-258)
-and icosahedra (gen:260-373). Copy of ``swift3drenderer_tpu.models.primitives``
-without the generator's per-cell regular floor. Unlike the reference — which uses unseeded ``Float.random`` for object
-orientation — every builder here takes an explicit ``rng`` so scenes are
-deterministic, which the golden-frame tests depend on.
+and icosahedra (gen:260-373), and the generator's per-cell regular floor
+(gen:108-188). Copy of ``swift3drenderer_tpu.models.primitives``. Unlike the
+reference — which uses unseeded ``Float.random`` for object orientation —
+every builder here takes an explicit ``rng`` so scenes are deterministic, which
+the golden-frame tests depend on.
 """
 
 from __future__ import annotations
@@ -111,6 +112,41 @@ def add_simple_floor(b: SceneBuilder, size: int = 30, tex: int = 0) -> None:
     for uv in (t1, t2, t3, t3, t2, t4):
         b.add_texture_attr(up, tex, uv)
     b.attribute_indices += list(range(j, j + 6))
+
+
+def add_regular_floor(b: SceneBuilder, size: int = 30, tex: int = 1,
+                      scale: float = 1.0) -> None:
+    """Per-cell offset-triangle floor — the generator's disabled alternative
+    (gen:108-188)."""
+    a = size
+    i = len(b.vertices)
+    for z in range(a + 1):
+        for x in range(a + 1):
+            extra = 0.5 * float(z % 2)
+            b.add_vertex([float(x) - a / 2.0 + extra, -0.5, -float(z) - 2.0])
+    up = [0.0, 1.0, 0.0]
+    for z in range(a):
+        a1 = i + z * (a + 1)
+        a2 = i + (z + 1) * (a + 1)
+        for x in range(a):
+            j = len(b.normals)
+            xs = math.fmod(float(x) * scale, 1.0)
+            ys = math.fmod(float(a - z - 1) * scale, 1.0)
+            if z % 2 == 0:
+                b.vertex_indices += [a1 + x, a2 + x, a1 + 1 + x,
+                                     a1 + 1 + x, a2 + x, a2 + 1 + x]
+                uvs = [(xs, ys + scale), (xs + 0.5 * scale, ys), (xs + scale, ys + scale),
+                       (xs + scale, ys + scale), (xs + 0.5 * scale, ys),
+                       (xs + 1.5 * scale, ys)]
+            else:
+                b.vertex_indices += [a1 + x, a2 + x, a2 + 1 + x,
+                                     a2 + 1 + x, a1 + 1 + x, a1 + x]
+                uvs = [(xs + 0.5 * scale, ys + scale), (xs, ys), (xs + scale, ys),
+                       (xs + scale, ys), (xs + 1.5 * scale, ys + scale),
+                       (xs + 0.5 * scale, ys + scale)]
+            for uv in uvs:
+                b.add_texture_attr(up, tex, uv)
+            b.attribute_indices += list(range(j, j + 6))
 
 
 def add_triangle(b: SceneBuilder, r: float = 1.0, p=(0.0, 0.0, -10.0),

@@ -1,19 +1,23 @@
-"""Tiled rasterizer: binning, packed setup tables, and the ``raster_flat_nearest``
-CUDA kernel with its plain PyTorch version.
+"""Tiled rasterizer: binning, packed setup tables, and the two CUDA kernels
+``raster_flat_nearest`` and ``raster_segmented_nearest``, each with its plain
+PyTorch version.
 
-Counterpart of the flat, nearest-sampling path of
+Counterpart of the nearest-sampling path of
 ``swift3drenderer_tpu.ops.raster_pallas``: ``pack_setup_tables``,
-``bin_triangles``, ``_rasterize_chunk``'s ``ids_resident`` branch and the
+``bin_triangles``, ``bin_segments``, ``_rasterize_chunk`` and the
 ``_raster_kernel`` it launches. The frame is cut into TILE_W x TILE_H pixel
-tiles; each tile's list holds, in ascending order, the live slots whose bbox
-touches it. The kernel (csrc/raster.cu) runs one thread block per tile and one
-thread per pixel: visibility over the tile's list, then the winner's shading and
-texel fetch, all in one launch as on the TPU.
+tiles. Small scenes (at most FLAT_MAX_SLOTS slots) bin flat: each tile's list
+holds, in ascending order, the live slots whose bbox touches it. Larger scenes
+bin in segments: a tile walks its own segment of one sorted (tile, slot) entry
+array and the broadband slots whose bbox touches it. Each kernel
+(csrc/raster.cu) runs one thread block per tile and one thread per pixel:
+visibility over the tile's lists, then the winner's shading and texel fetch,
+all in one launch as on the TPU, for any scene size.
 
 Winners do not depend on the tiling: a pixel tests every live slot whose bbox
-touches its tile in ascending slot order, and the exact bbox test is part of
-coverage, so any slot left out of a tile's list would fail it anyway. The plain
-version therefore walks all binned slots over the whole frame.
+touches its tile, and the exact bbox test is part of coverage, so any slot left
+out of a tile's list would fail it anyway. The flat plain version therefore
+walks all binned slots over the whole frame.
 """
 
 from __future__ import annotations
@@ -44,6 +48,19 @@ _I32_ROWS = 7
 # (kTileW, kTileH).
 TILE_W, TILE_H = 32, 8
 
+# Scenes of at most FLAT_MAX_SLOTS slots take raster_flat_nearest; larger ones
+# the segmented front-end and raster_segmented_nearest. The same scenes take
+# the same form in the JAX package (S + 3 <= 128, raster_pallas.py:1477).
+FLAT_MAX_SLOTS = 125
+
+# Tiles a slot's bbox may cover before the segmented binner sends it to the
+# broadband list instead of giving it one entry per tile. Larger K sorts more
+# entries (K * S keys); smaller K sends more slots to the broadband list,
+# whose bboxes every tile tests. 16 gave the least device time (sort +
+# kernel) summed over stress 840 at 1080p and 4K and stress100k at 1080p
+# (chip_smoke.py's K sweep; PERF.md).
+SEG_K = 16
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -70,6 +87,17 @@ def pack_setup_tables(setup: Dict[str, torch.Tensor]):
     return f32, i32
 
 
+def _tile_bbox(setup: Dict[str, torch.Tensor], ntx: int, nty: int,
+               tile_w: int, tile_h: int):
+    """Each slot's bbox in tile coordinates, clamped to the grid:
+    (txmin, txmax, tymin, tymax), (S,) int32 each."""
+    def tiles(v, size, n):
+        return torch.clamp(torch.div(v, size, rounding_mode="floor"), 0, n - 1)
+
+    return (tiles(setup["xmin"], tile_w, ntx), tiles(setup["xmax"], tile_w, ntx),
+            tiles(setup["ymin"], tile_h, nty), tiles(setup["ymax"], tile_h, nty))
+
+
 def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
                   tile_h: int, tile_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Map each live triangle to the framebuffer tiles its bbox touches.
@@ -80,14 +108,7 @@ def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
     """
     dev = setup["live"].device
     ntx, nty = _cdiv(width, tile_w), _cdiv(height, tile_h)
-    txmin = torch.clamp(torch.div(setup["xmin"], tile_w, rounding_mode="floor"),
-                        0, ntx - 1)
-    txmax = torch.clamp(torch.div(setup["xmax"], tile_w, rounding_mode="floor"),
-                        0, ntx - 1)
-    tymin = torch.clamp(torch.div(setup["ymin"], tile_h, rounding_mode="floor"),
-                        0, nty - 1)
-    tymax = torch.clamp(torch.div(setup["ymax"], tile_h, rounding_mode="floor"),
-                        0, nty - 1)
+    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, tile_w, tile_h)
     tx = torch.arange(ntx, dtype=torch.int32, device=dev)
     ty = torch.arange(nty, dtype=torch.int32, device=dev)
     touch_x = (tx[None, :] >= txmin[:, None]) & (tx[None, :] <= txmax[:, None])
@@ -105,6 +126,61 @@ def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
     ids = (torch.sort(keys, dim=1).values % s).to(torch.int32).contiguous()
     counts = touch.sum(dim=1, dtype=torch.int32)[:, None].contiguous()
     return ids, counts
+
+
+def segment_keys(setup: Dict[str, torch.Tensor], *, width: int, height: int,
+                 k: int = SEG_K) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unsorted entries of ``bin_segments``: (keys (S*K,) int32, big (S,)
+    bool). Entry ``slot * K + e`` is the e-th tile, row-major, of the slot's
+    tile bbox, keyed by that tile's index, for each live slot whose bbox
+    covers at most K tiles; every other entry is keyed ``ntiles``, past every
+    tile. ``big`` marks the live slots that cover more than K tiles. A key is
+    at most ``ntiles``, so it is bounded by the grid alone, whatever S."""
+    ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
+    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, TILE_W, TILE_H)
+    live = setup["live"]
+    # Dead slots may have an empty bbox; clamping keeps the division defined.
+    wx = (txmax - txmin + 1).clamp(min=1)
+    area = wx * (tymax - tymin + 1)
+    small = live & (area <= k)
+    e = torch.arange(k, dtype=torch.int32, device=live.device)[None, :]
+    dy = torch.div(e, wx[:, None], rounding_mode="floor")
+    tile = (tymin[:, None] + dy) * ntx + txmin[:, None] + (e - dy * wx[:, None])
+    keys = torch.where(small[:, None] & (e < area[:, None]), tile, ntx * nty)
+    return keys.reshape(-1).to(torch.int32), live & (area > k)
+
+
+def bin_segments(setup: Dict[str, torch.Tensor], *, width: int, height: int,
+                 k: int = SEG_K):
+    """Segmented binning at TILE_W x TILE_H: the large-scene front-end
+    (``raster_pallas.py::bin_segments``).
+
+    Each live slot whose bbox covers at most K tiles gives one (tile, slot)
+    entry per covered tile; one stable sort of the tile keys, slot-major,
+    groups the entries by tile with ascending slots within each tile. Slots
+    covering more tiles go to one shared ascending broadband list. Every
+    shape is static (K*S entries) and nothing is read back to the host, so a
+    frame makes no device-to-host copy.
+
+    Returns (ids (K*S,) int32: entry slots, tile-major, the tail past the last
+    segment unused; starts (ntiles,) int32 and counts (ntiles,) int32: each
+    tile's segment of ``ids``; bb (S,) int32: the broadband slots ascending,
+    then the other slots; bb_count (1,) int32: the broadband list's length).
+    """
+    keys, big = segment_keys(setup, width=width, height=height, k=k)
+    dev = keys.device
+    ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    ids = torch.div(order, k, rounding_mode="floor").to(torch.int32)
+    bounds = torch.searchsorted(
+        sorted_keys, torch.arange(ntiles + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    starts = bounds[:-1].contiguous()
+    counts = (bounds[1:] - bounds[:-1]).contiguous()
+    s = big.shape[0]
+    slot = torch.arange(s, dtype=torch.int32, device=dev)
+    bb = (torch.sort(torch.where(big, slot, slot + s)).values % s).to(torch.int32)
+    return ids, starts, counts, bb, big.sum(dtype=torch.int32).reshape(1)
 
 
 # ---------------------------------------------------------------------------
@@ -242,15 +318,127 @@ def raster_flat_nearest_plain(counts, ids, trf, tri, textures, *, width: int,
 
 
 # ---------------------------------------------------------------------------
-# The kernel's wrapper.
+# The plain PyTorch version of raster_segmented_nearest.
+
+# (tile, slot) pairs evaluated at once by the plain segmented visibility: each
+# pair is one tile's TILE_W x TILE_H pixels.
+_PAIR_CHUNK = 8192
+_I32_MAX_KEY = (1 << 31) - 1
+
+
+def segmented_pairs(ids, starts, counts, bb, bb_count, tri, *, width: int,
+                    height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every (tile, slot) pair the segmented kernel evaluates and may let win:
+    each tile's segment, and each broadband slot with every tile its bbox
+    touches. Returns (tiles, slots), int64 (n,) each. Reads counts back to the
+    host: for the plain version and measurements only."""
+    dev = ids.device
+    ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
+    counts = counts.long()
+    seg_tiles = torch.repeat_interleave(
+        torch.arange(ntx * nty, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts         # each segment's own start
+    pos = (starts.long()[seg_tiles]
+           + torch.arange(seg_tiles.numel(), device=dev) - first[seg_tiles])
+    seg_slots = ids.long()[pos]
+    big = bb[:int(bb_count.reshape(-1)[0])].long()
+    bbox = {"xmin": tri[_XMIN], "xmax": tri[_XMAX], "ymin": tri[_YMIN],
+            "ymax": tri[_YMAX]}
+    x0, x1, y0, y1 = (v[big].long() for v in _tile_bbox(bbox, ntx, nty,
+                                                        TILE_W, TILE_H))
+    wx = x1 - x0 + 1
+    area = wx * (y1 - y0 + 1)
+    bb_slots = torch.repeat_interleave(big, area)
+    j = (torch.arange(bb_slots.numel(), device=dev)
+         - torch.repeat_interleave(torch.cumsum(area, 0) - area, area))
+    wx, x0, y0 = (torch.repeat_interleave(v, area) for v in (wx, x0, y0))
+    bb_tiles = (y0 + j // wx) * ntx + x0 + j % wx
+    return torch.cat([seg_tiles, bb_tiles]), torch.cat([seg_slots, bb_slots])
+
+
+def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
+                               width: int, height: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of the segmented kernel over the whole frame: (best 1/z (H, W)
+    f32, winner slot (H, W) i32, -1 where nothing covers).
+
+    Every (tile, slot) pair of ``segmented_pairs`` is evaluated over the
+    tile's pixels, in chunks, with each edge function rounded as
+    ``(w00 + px*dx) + py*dy`` as the kernel rounds it. A pixel's winner is the
+    order-independent rule of raster_pallas.py:463-471 — the greatest 1/z,
+    and at equal 1/z > 0 the smaller slot — taken by one ``amax`` over the
+    int64 key ``bits(1/z) << 32 | (2^31 - 1 - slot)``: positive f32 bit
+    patterns order as the floats do, and 1/z <= 0 (or NaN) never wins."""
+    dev = trf.device
+    ntx = _cdiv(width, TILE_W)
+    tiles, slots = segmented_pairs(ids, starts, counts, bb, bb_count, tri,
+                                   width=width, height=height)
+    lane = torch.arange(TILE_W * TILE_H, device=dev)
+    lx, ly = lane % TILE_W, lane // TILE_W
+    key = torch.zeros(height * width, dtype=torch.int64, device=dev)
+    for c in range(0, tiles.numel(), _PAIR_CHUNK):
+        t, s = tiles[c:c + _PAIR_CHUNK], slots[c:c + _PAIR_CHUNK]
+        px = (t % ntx * TILE_W)[:, None] + lx[None, :]
+        py = (t // ntx * TILE_H)[:, None] + ly[None, :]
+        pxf, pyf = px.to(torch.float32), py.to(torch.float32)
+        f, i = trf[:, s, None], tri[:, s, None]
+        w0, w1, w2 = (f[_W00 + k] + pxf * f[_DX + k] + pyf * f[_DY + k]
+                      for k in range(3))
+        ooz = w0 * f[_RVZ] + w1 * f[_RVZ + 1] + w2 * f[_RVZ + 2]
+        wins = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (ooz > 0)
+                & (px >= i[_XMIN]) & (px <= i[_XMAX])
+                & (py >= i[_YMIN]) & (py <= i[_YMAX])
+                & (px < width) & (py < height))
+        k = ((ooz.view(torch.int32).to(torch.int64) << 32)
+             | (_I32_MAX_KEY - s)[:, None])
+        key.scatter_reduce_(0, torch.where(wins, py * width + px, 0).reshape(-1),
+                            torch.where(wins, k, 0).reshape(-1), reduce="amax")
+    best = (key >> 32).to(torch.int32).view(torch.float32).reshape(height, width)
+    win = torch.where(key > 0, _I32_MAX_KEY - (key & _I32_MAX_KEY), -1)
+    return best, win.to(torch.int32).reshape(height, width)
+
+
+def raster_segmented_nearest_plain(ids, starts, counts, bb, bb_count, trf, tri,
+                                   textures, *, width: int, height: int,
+                                   background: int):
+    """Plain PyTorch version of the ``raster_segmented_nearest`` kernel: same
+    inputs, same (pixels (H, W) int32, depth (H, W) f32)."""
+    best, win = visibility_segmented_plain(ids, starts, counts, bb, bb_count,
+                                           trf, tri, width=width,
+                                           height=height)
+    return shade_plain(best, win, trf, tri, textures,
+                       background=background), best
+
+
+# ---------------------------------------------------------------------------
+# The kernels' wrappers.
 
 @functools.cache
-def _kernel():
-    fn = kernels.library().raster_flat_nearest
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+def _kernel(name: str, pointers: int):
+    """The C entry point ``name``: ``pointers`` device pointers, then S,
+    the texture count, width, height and background, then the stream."""
+    fn = getattr(kernels.library(), name)
+    fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(name: str, inputs, textures: torch.Tensor, s: int, *, width: int,
+            height: int, background: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and launch ``name`` on the tensors' card; raise
+    if the launch was refused."""
+    dev = textures.device
+    pix = torch.empty((height, width), dtype=torch.int32, device=dev)
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    ptrs = [t.data_ptr() for t in (*inputs, textures, pix, depth)]
+    with torch.cuda.device(dev):   # the launch goes to the tensors' card
+        err = _kernel(name, len(ptrs))(
+            *ptrs, s, textures.shape[0], width, height, background,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: {kernels.error_string(err)}")
+    return pix, depth
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -290,31 +478,73 @@ def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
     _check(trf, "trf", torch.float32, (_F32_ROWS, s), dev)
     _check(tri, "tri", torch.int32, (_I32_ROWS, s), dev)
     _check(textures, "textures", torch.int32, (nt, 512, 512), dev)
-    pix = torch.empty((height, width), dtype=torch.int32, device=dev)
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):   # the launch goes to the tensors' card
-        err = _kernel()(
-            counts.data_ptr(), ids.data_ptr(), trf.data_ptr(), tri.data_ptr(),
-            textures.data_ptr(), pix.data_ptr(), depth.data_ptr(),
-            s, nt, width, height, background,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"raster_flat_nearest launch failed: {kernels.error_string(err)}")
+    out = _launch("raster_flat_nearest", (counts, ids, trf, tri), textures, s,
+                  width=width, height=height, background=background)
     raster_flat_nearest.launches += 1
-    return pix, depth
+    return out
 
 
 raster_flat_nearest.launches = 0
 
 
+def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
+                             counts: torch.Tensor, bb: torch.Tensor,
+                             bb_count: torch.Tensor, trf: torch.Tensor,
+                             tri: torch.Tensor, textures: torch.Tensor, *,
+                             width: int, height: int, background: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Visibility over each tile's segment and the broadband list, deferred
+    shading and nearest texel fetch for one frame.
+
+    ids (E,) i32, starts (ntiles,) i32, counts (ntiles,) i32, bb (S,) i32 and
+    bb_count (1,) i32 from ``bin_segments``; trf (43, S) f32 and tri (7, S)
+    i32 from ``pack_setup_tables``; textures (NT, 512, 512) i32. Returns
+    (pixels (H, W) int32 holding 0x00RRGGBB, depth (H, W) f32 = 1/z, 0 where
+    empty), equal to ``raster_flat_nearest`` on the same setup table.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    ``raster_segmented_nearest.launches`` counts the kernel's launches.
+    """
+    dev = trf.device
+    if dev.type == "cpu":
+        return raster_segmented_nearest_plain(
+            ids, starts, counts, bb, bb_count, trf, tri, textures, width=width,
+            height=height, background=background)
+    if dev.type != "cuda":
+        raise ValueError(f"raster_segmented_nearest runs on cpu or cuda, not {dev}")
+    s = trf.shape[1]
+    ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
+    _check(ids, "ids", torch.int32, (ids.numel(),), dev)
+    _check(starts, "starts", torch.int32, (ntiles,), dev)
+    _check(counts, "counts", torch.int32, (ntiles,), dev)
+    _check(bb, "bb", torch.int32, (s,), dev)
+    _check(bb_count, "bb_count", torch.int32, (1,), dev)
+    _check(trf, "trf", torch.float32, (_F32_ROWS, s), dev)
+    _check(tri, "tri", torch.int32, (_I32_ROWS, s), dev)
+    _check(textures, "textures", torch.int32,
+           (textures.shape[0], 512, 512), dev)
+    out = _launch("raster_segmented_nearest",
+                  (ids, starts, counts, bb, bb_count, trf, tri), textures, s,
+                  width=width, height=height, background=background)
+    raster_segmented_nearest.launches += 1
+    return out
+
+
+raster_segmented_nearest.launches = 0
+
+
 def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
               width: int, height: int,
               background: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Bin, pack and rasterize one frame: (pixels (H, W) int32, depth (H, W)
-    f32). The host side of ``rasterize_pallas`` for single-pass scenes."""
-    ids, counts = bin_triangles(setup, width=width, height=height,
-                                tile_h=TILE_H, tile_w=TILE_W)
+    """Bin, pack and rasterize one frame in one kernel launch: (pixels (H, W)
+    int32, depth (H, W) f32). The host side of ``rasterize_pallas``; any
+    scene size renders in one pass (the JAX package's slot cap and multipass
+    answer the TPU's SMEM, which the card does not have)."""
     trf, tri = pack_setup_tables(setup)
-    return raster_flat_nearest(counts, ids, trf, tri, textures, width=width,
-                               height=height, background=background)
+    kw = dict(width=width, height=height, background=background)
+    if trf.shape[1] <= FLAT_MAX_SLOTS:
+        ids, counts = bin_triangles(setup, width=width, height=height,
+                                    tile_h=TILE_H, tile_w=TILE_W)
+        return raster_flat_nearest(counts, ids, trf, tri, textures, **kw)
+    binned = bin_segments(setup, width=width, height=height)
+    return raster_segmented_nearest(*binned, trf, tri, textures, **kw)

@@ -3,8 +3,9 @@
 
   host: camera update (NumPy)  ->  (3, 4) matrix to the device
   device: vertex + normal products -> near-plane clip prepass -> setup table
-  -> binning -> raster_flat_nearest (visibility, shading, texel fetch)
-  -> (H, W) packed pixels and 1/z depth
+  -> binning -> one raster kernel launch, raster_flat_nearest for small
+     scenes or raster_segmented_nearest for large ones (visibility,
+     shading, texel fetch) -> (H, W) packed pixels and 1/z depth
 
 The scene is uploaded once, corner-major; per frame only the matrix goes to the
 device. Entry points run on the CUDA card unless the caller passes
@@ -25,12 +26,6 @@ from .ops.raster import rasterize
 from .ops.setup import triangle_setup
 from .ops.vertex import project, transform_normals, transform_points
 from .utils.databin import Scene
-
-# Largest setup table the port renders in one pass (2 slots per triangle).
-# The JAX package compacts larger scenes first (raster_pallas.py:2201); that
-# path waits for the large-scene slice (ROADMAP queue 1 item 8).
-MAX_SLOTS = 4096
-
 
 def scene_to_device(scene: Scene, device) -> Dict[str, torch.Tensor]:
     """Upload a host Scene in structure-of-arrays form, with the corner
@@ -70,12 +65,8 @@ def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
 def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
                  height: int, config: RenderConfig = DEFAULT_CONFIG
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One frame: (pixels (H, W) int32 holding 0x00RRGGBB, depth (H, W) f32)."""
-    t = dev["vert_c"].shape[0]
-    if 2 * t > MAX_SLOTS:
-        raise NotImplementedError(
-            f"{t} triangles make {2 * t} slots, above the port's single-pass "
-            f"{MAX_SLOTS}; large scenes wait for ROADMAP queue 1 item 8")
+    """One frame: (pixels (H, W) int32 holding 0x00RRGGBB, depth (H, W) f32),
+    any scene size in one raster pass, with no device-to-host copy."""
     if config.sampling != "nearest":
         raise NotImplementedError(
             f"sampling={config.sampling!r}: the port samples nearest only; "

@@ -1,5 +1,7 @@
-"""The port's CUDA kernel on the card: ``raster_flat_nearest`` against its
-plain PyTorch version, and the CUDA renderer against the CPU one.
+"""The port's CUDA kernels on the card: ``raster_flat_nearest`` and
+``raster_segmented_nearest`` against their plain PyTorch versions, and the
+CUDA renderer against the CPU one, on the default scene and on a stress field
+(3,078 slots, the segmented path).
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -72,6 +74,52 @@ def test_cuda_renderer_equals_cpu_renderer():
     for m in flight(12):
         for w, h in ((W, H), RAGGED):
             pg, dg = on_card.render(m, w, h)
+            pc, dc = on_cpu.render(m, w, h)
+            np.testing.assert_array_equal(pg, pc)
+            np.testing.assert_array_equal(dg, dc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(W, H), RAGGED])
+def test_segmented_kernel_matches_plain_on_cuda(size):
+    """raster_segmented_nearest against its plain version on the card, bit
+    for bit, on stress_scene(objects=128)."""
+    need_card()
+    w, h = size
+    dev = scene_to_device(SCENES["stress"](seed=0, objects=128), "cuda")
+    for m in flight(12)[::4]:
+        setup = build_setup(dev, torch.as_tensor(m, device="cuda"), width=w,
+                            height=h, config=port.DEFAULT_CONFIG)
+        trf, tri = tr.pack_setup_tables(setup)
+        binned = tr.bin_segments(setup, width=w, height=h)
+        before = tr.raster_segmented_nearest.launches
+        pk, dk = tr.raster_segmented_nearest(*binned, trf, tri,
+                                             dev["textures"], width=w,
+                                             height=h, background=BG)
+        pp, dp = tr.raster_segmented_nearest_plain(*binned, trf, tri,
+                                                   dev["textures"], width=w,
+                                                   height=h, background=BG)
+        torch.cuda.synchronize()
+        assert tr.raster_segmented_nearest.launches == before + 1
+        assert torch.equal(pk, pp) and torch.equal(dk, dp)
+        assert bool((pk != BG).any()) and int(binned[4][0]) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_renderer_equals_cpu_renderer_on_stress():
+    """The segmented path: one raster_segmented_nearest launch per frame on
+    the card, and the same frames as the CPU renderer, bit for bit."""
+    need_card()
+    scene = SCENES["stress"](seed=0, objects=128)
+    on_card = port.Renderer(scene, device="cuda")
+    on_cpu = port.Renderer(scene, device="cpu")
+    for m in flight(12)[::3]:
+        for w, h in ((W, H), RAGGED):
+            flat, seg = (tr.raster_flat_nearest.launches,
+                         tr.raster_segmented_nearest.launches)
+            pg, dg = on_card.render(m, w, h)
+            assert tr.raster_segmented_nearest.launches == seg + 1
+            assert tr.raster_flat_nearest.launches == flat
             pc, dc = on_cpu.render(m, w, h)
             np.testing.assert_array_equal(pg, pc)
             np.testing.assert_array_equal(dg, dc)

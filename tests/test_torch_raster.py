@@ -10,6 +10,10 @@ test_pallas_matches_xla keeps between the JAX package's own two paths), depth
 rtol 1e-4 where both are drawn.
 """
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +34,7 @@ from conftest import pixel_mismatch_fraction
 
 W, H = 320, 240
 BG = DEFAULT_CONFIG.background_packed
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def to_torch(setup):
@@ -151,15 +156,53 @@ def texel_coordinates_f64(trf, best, win, yy, xx):
     return np.fmod(uv, 1.0) * lp
 
 
-def test_texel_boundary_pose_within_golden_bound(both_rasters):
+# Runs the Pallas kernel (interpret mode) on a saved setup table with XLA's
+# CPU backend limited to AVX, which has no fused multiply-add: XLA then cannot
+# contract a multiply and an add into one FMA, which it otherwise does on any
+# CPU that has FMA3 (its loop fusions are compiled with FP-op fusion allowed).
+_NO_FMA_RUN = """
+import sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.config.update("jax_platforms", "cpu")
+from swift3drenderer_tpu.config import DEFAULT_CONFIG
+from swift3drenderer_tpu.models import SCENES
+from swift3drenderer_tpu.ops import raster_pallas as jr
+from swift3drenderer_tpu.renderer import scene_to_device
+setup = {k: jnp.asarray(v) for k, v in np.load(sys.argv[1]).items()}
+textures = scene_to_device(SCENES["default"](seed=0))["textures"]
+s = setup["live"].shape[0]
+out = jr._rasterize_chunk(
+    jax.tree.map(lambda a: a[None], setup), textures, width=320, height=240,
+    background=DEFAULT_CONFIG.background_packed, tile_h=8, tile_w=128,
+    y_offset=0, interpret=True, sampling="nearest",
+    gids=jnp.arange(s, dtype=jnp.int32))
+np.savez(sys.argv[2], *(np.asarray(a[0]) for a in out))
+"""
+
+# A far-floor pixel (row, column) whose texel the contraction flips at this
+# pose: with FMA the Pallas kernel fetches a neighbouring texel, without it the
+# port's.
+_WITNESS = (143, 277)
+
+
+def test_texel_boundary_pose_within_golden_bound(both_rasters, tmp_path):
     """bench.py's first flight pose (one step forward) puts far floor rows of
-    the default scene on texel boundaries at 320x240. There last-ULP
-    differences between the Pallas kernel (interpret mode, so XLA on the CPU)
-    and the port flip texels: the tol-1 mismatch between them passes 5e-4.
-    The witness: every flipped pixel has the same winner on both sides, is
-    textured, and its float64 texel coordinate lies within 1e-3 texel of a
-    texel boundary (a pixel's distance is spread over [0, 0.5]). Each side
-    stays within 0.2 % of the golden oracle. Run with -s to see the numbers."""
+    the default scene on texel boundaries at 320x240. There the Pallas kernel
+    (interpret mode, so XLA on the CPU) and the port disagree on texels: the
+    tol-1 mismatch between them passes 5e-4. The witness: every flipped pixel
+    has the same winner on both sides, is textured, and its float64 texel
+    coordinate lies within 1e-3 texel of a texel boundary (a pixel's distance
+    is spread over [0, 0.5]). Each side stays within 0.2 % of the golden
+    oracle.
+
+    The cause is XLA's multiply-add contraction on the CPU: rerun on the same
+    setup table with contraction impossible (a subprocess, XLA limited to
+    AVX), the Pallas kernel's pixels, depth and winners equal the port's bit
+    for bit, _WITNESS and the other flipped pixels included. On a CPU without
+    FMA3 the in-process run cannot contract either and flips nothing. Run
+    with -s to see the numbers."""
     scene = SCENES["default"](seed=0)
     m = Camera().update(Input(up=1.0), force_update=True)
     setup = build_setup(scene_to_device(scene), jnp.asarray(m), width=W,
@@ -174,21 +217,49 @@ def test_texel_boundary_pose_within_golden_bound(both_rasters):
     trf, tri = tr.pack_setup_tables(to_torch(setup))
     coord = texel_coordinates_f64(trf, depth, win, yy, xx)
     to_boundary = np.abs(coord - np.round(coord)).min(axis=0)
+
+    np.savez(tmp_path / "setup.npz", **{k: np.asarray(v)
+                                        for k, v in setup.items()})
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-c", _NO_FMA_RUN, str(tmp_path / "setup.npz"),
+         str(tmp_path / "nofma.npz")],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    nofma = np.load(tmp_path / "nofma.npz")
+    pn, dn, gn = nofma["arr_0"], nofma["arr_1"], nofma["arr_2"]
+
     numbers = {"port_vs_pallas": pixel_mismatch_fraction(pix, pj),
-                 "port_vs_golden": pixel_mismatch_fraction(pix, gp),
-                 "pallas_vs_golden": pixel_mismatch_fraction(pj, gp),
-                 "flipped_pixels": int(flipped.sum()),
-                 "max_texels_to_boundary": float(to_boundary.max())}
+               "port_vs_golden": pixel_mismatch_fraction(pix, gp),
+               "pallas_vs_golden": pixel_mismatch_fraction(pj, gp),
+               "flipped_pixels": int(flipped.sum()),
+               "max_texels_to_boundary": float(to_boundary.max()),
+               "port_vs_pallas_no_fma": pixel_mismatch_fraction(pix, pn),
+               "pixels_differing_no_fma": int((pix != pn).sum()),
+               "depth_differing_with_fma": int((depth != dj).sum())}
     print(numbers)
     assert (win == gj).mean() >= 0.9995
     both = (dj > 0) & (depth > 0)
     np.testing.assert_allclose(depth[both], dj[both], rtol=1e-4)
     assert numbers["port_vs_golden"] < 0.002
     assert numbers["pallas_vs_golden"] < 0.002
-    assert flipped.any()
-    np.testing.assert_array_equal(win[flipped], gj[flipped])
-    assert (tri[tr._ISTEX].numpy()[win[flipped]] == 1).all()
-    assert to_boundary.max() < 1e-3
+    if flipped.any():
+        # This process's XLA contracted multiply-adds (a CPU with FMA3): the
+        # flips are texel-boundary pixels of the same winners, the witness
+        # among them.
+        np.testing.assert_array_equal(win[flipped], gj[flipped])
+        assert (tri[tr._ISTEX].numpy()[win[flipped]] == 1).all()
+        assert to_boundary.max() < 1e-3
+        assert flipped[_WITNESS] and pix[_WITNESS] != pj[_WITNESS]
+        assert numbers["depth_differing_with_fma"] > 0
+    # Without contraction: the same frame, bit for bit.
+    assert numbers["port_vs_pallas_no_fma"] < 5e-4
+    np.testing.assert_array_equal(pix, pn)
+    np.testing.assert_array_equal(depth, dn)
+    np.testing.assert_array_equal(win, np.where(dn > 0, gn, -1))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

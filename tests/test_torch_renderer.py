@@ -11,6 +11,7 @@ depth rtol 1e-4 where both are drawn; < 0.2 % against golden.render_frame.
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,6 +25,7 @@ from swift3drenderer_tpu.renderer import scene_to_device as jscene_to_device
 from swift3drenderer_tpu_torch.config import RenderConfig
 from swift3drenderer_tpu_torch.convert import device_arrays_from_numpy
 from swift3drenderer_tpu_torch.models import SCENES as PORT_SCENES
+from swift3drenderer_tpu_torch.models import scene as port_scene
 from swift3drenderer_tpu_torch.renderer import scene_to_device
 
 from conftest import pixel_mismatch_fraction
@@ -98,13 +100,24 @@ def test_device_arrays_from_numpy_round_trip(name):
         converted["textures"].numpy().view(np.uint32), jdev["textures"])
 
 
-def test_port_scenes_equal_jax_scenes():
+def test_port_scenes_equal_jax_scenes(monkeypatch):
+    # stress at a small field; stress100k is not built here (100k
+    # triangles), only shown to be stress at 8400 objects.
+    small = {"stress": dict(objects=12)}
     for name in PORT_SCENES:
-        a, b = SCENES[name](seed=3), PORT_SCENES[name](seed=3)
+        if name == "stress100k":
+            continue
+        kw = small.get(name, {})
+        a, b = SCENES[name](seed=3, **kw), PORT_SCENES[name](seed=3, **kw)
         for field in ("vertices", "vertex_indices", "normals", "attr_vec",
                       "attr_tex", "attribute_indices", "textures"):
             np.testing.assert_array_equal(getattr(b, field), getattr(a, field),
                                           err_msg=f"{name}.{field}")
+    calls = []
+    monkeypatch.setattr(port_scene, "stress_scene",
+                        lambda **kw: calls.append(kw) or "field")
+    assert PORT_SCENES["stress100k"](seed=3) == "field"
+    assert calls == [dict(seed=3, objects=8400, textures=None)]
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -139,13 +152,51 @@ def test_renderer_rejects_what_waits_for_later_slices():
                              device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         bilinear.render(m, W, H)
-    # 2049 triangles make 4098 slots, past the single-pass 4096.
+    # 513 copies of the tetrahedron, 2052 triangles, make 4104 slots, past
+    # the JAX package's single-pass 4096: the port renders them in one pass.
+    # Copies tie in depth, so the first copy wins every pixel: the frame is
+    # the one tetrahedron's.
     big = port.Scene(
         vertices=scene.vertices, normals=scene.normals,
         attr_vec=scene.attr_vec, attr_tex=scene.attr_tex,
-        vertex_indices=np.tile(scene.vertex_indices[:3], 2049),
-        attribute_indices=np.tile(scene.attribute_indices[:3], 2049),
+        vertex_indices=np.tile(scene.vertex_indices, 513),
+        attribute_indices=np.tile(scene.attribute_indices, 513),
         textures=scene.textures)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        port.Renderer(big, device="cpu").render(m, W, H)
+    px, depth = port.Renderer(big, device="cpu").render(m, W, H)
+    p1, d1 = port.Renderer(scene, device="cpu").render(m, W, H)
+    np.testing.assert_array_equal(px, p1)
+    np.testing.assert_array_equal(depth, d1)
+    assert (depth > 0).mean() > 0.05
+
+
+def test_renderer_matches_jax_compact_early_multipass_on_stress():
+    """stress_scene(objects=220): 2,643 triangles, 5,286 slots, which the
+    JAX package renders through its compact-early multipass (prelive cull,
+    chunked clip and setup, live-compacted passes merged by depth) and the
+    port in one segmented pass. The JAX side is the Pallas renderer's own
+    path, render_frame_pallas, with 8-row tiles (winners do not depend on the
+    tiling; the short tiles keep the interpret-mode compile to seconds). The
+    second pose puts near-plane straddlers in view."""
+    from swift3drenderer_tpu.ops.raster_pallas import render_frame_pallas
+
+    w, h = 160, 120
+    scene = SCENES["stress"](seed=0, objects=220)
+    assert 2 * scene.num_triangles == 5286
+    ours = port.Renderer(scene, device="cpu")
+    ref = JaxRenderer(scene, backend="pallas")
+    cam = Camera()
+    for i, m in enumerate([cam.update(Input(), force_update=True).copy(),
+                           cam.update(Input(up=2.0, mouse=(0.0, -40.0)))]):
+        px, depth = ours.render(m, w, h)
+        ref_px, ref_depth = (np.asarray(a) for a in render_frame_pallas(
+            ref.dev, jnp.asarray(m, jnp.float32), width=w, height=h,
+            interpret=True, tile_h=8))
+        assert pixel_mismatch_fraction(px, ref_px, tol=1) < 5e-4, i
+        np.testing.assert_array_equal(depth > 0, ref_depth > 0)
+        both = (ref_depth > 0) & (depth > 0)
+        np.testing.assert_allclose(depth[both], ref_depth[both], rtol=1e-4)
+        gp, _ = golden_render(scene, m, w, h)
+        assert pixel_mismatch_fraction(px, gp, tol=1) < 0.002, i
+        assert pixel_mismatch_fraction(ref_px, gp, tol=1) < 0.002, i
+        assert (depth > 0).mean() > 0.2, i
 
