@@ -7,24 +7,33 @@ Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a);
   3. hold each kernel against its plain PyTorch version on the card, bit for
-     bit: raster_flat_nearest on the default scene's tables at 1920x1080 and
-     3840x2160 and the other small scene families at a ragged 1366x768;
-     raster_segmented_nearest on stress_scene(objects=840) at both sizes,
-     regular_floor at 1366x768, stress100k at 1366x768 and 1920x1080, and
-     against raster_flat_nearest on the default scene;
+     bit: raster_flat_nearest and raster_flat_bilinear on the default
+     scene's tables at 1920x1080 and 3840x2160 and the other small scene
+     families at a ragged 1366x768; raster_segmented_nearest and
+     raster_segmented_bilinear on stress_scene(objects=840) at both sizes and
+     stress100k at 1920x1080 (nearest also regular_floor and stress100k at
+     1366x768), and against the flat kernels on the default scene; and each
+     kernel's batched launch (B = 4) against its launches frame by frame;
   4. drive the main paths through Renderer(..., device="cuda"), each with the
-     launch counts set to 0 just before and read just after: the default
-     scene and the 840-object stress field over bench.py's 20-pose flight at
-     both sizes, stress100k over its first 5 poses at 1920x1080; and hold the
-     output against the plain CPU path on small frames (one of them ragged);
-  5. time, with CUDA events after a warm-up: render_device per frame, the
-     front-end stages, each kernel (with the L2 cache cold, as a frame finds
-     it) and its plain version, beside the least time the card could take
-     for the same work; the segmented binner's entries, broadband slots
-     and sort time for several K; and the default scene through either
-     route (flat, or segmented with the flat route's slot limit lifted):
-     frames (bit-equal), binners and kernels;
-  6. the share of the flight's wall time the card is busy, each kernel's
+     launch counts of all four kernels set to 0 just before and read just
+     after: the default scene and the 840-object stress field over bench.py's
+     20-pose flight at both sizes, stress100k over its first 5 poses at
+     1920x1080; with bilinear sampling the icosahedron scene (config 2) and
+     stress 840 at 1920x1080 and the default scene at both sizes; and the
+     serving path, Renderer.render_batch, on the default scene (B = 4,
+     1920x1080, the flight in 5 calls) and the tetrahedron (B = 8, 640x480,
+     config 1), every batch frame bit-equal to its single-frame render; then
+     hold the card's output against the plain CPU path on small frames (one
+     of them ragged), single frames and batches, nearest and bilinear;
+  5. time, with CUDA events after a warm-up: each cell's frame (or batch
+     call), the front-end stages, its kernel (with the L2 cache cold, as a
+     frame finds it) and plain version, beside the least time the card could
+     take for the same work; the segmented binner's entries, broadband slots
+     and sort time for several K; the default scene through either route
+     (flat, or segmented with the flat route's slot limit lifted): frames
+     (bit-equal), binners and kernels; and the batch sweep B = 1, 2, 4, 8 at
+     both sizes: ms per frame, kernels per call and the card's busy share;
+  6. the share of each flight's wall time the card is busy, each kernel's
      device time per frame in the flight, and the device-to-host copies the
      flight makes (must be none), from torch.profiler; and each route's
      device time per frame of the default scene's flight.
@@ -52,8 +61,18 @@ RAGGED_SMALL = (333, 217)  # neither a multiple of the 32 x 8 tile
 RAGGED = (1366, 768)       # 1366 is not a multiple of 32
 STRESS_OBJECTS = 840       # bench.py's stress row: 10,083 triangles
 SEG_K_SWEEP = (2, 4, 8, 16, 32)
+CONFIG1 = (640, 480)       # BASELINE config 1: the tetrahedron at B = 8
+BATCH_SWEEP = (1, 2, 4, 8)
+SWEEP_FRAMES = 16          # frames rendered per batch-sweep setting
 MISMATCH_BOUND = 5e-4      # test_pallas_matches_xla's bound, tol 1
 DEPTH_RTOL = 1e-4
+KERNELS = ("raster_flat_nearest", "raster_segmented_nearest",
+           "raster_flat_bilinear", "raster_segmented_bilinear")
+# Each kernel's name in a profiler trace (the template instance it launches).
+TRACE_NAMES = {"raster_flat_nearest": "raster_flat_kernel<false>",
+               "raster_flat_bilinear": "raster_flat_kernel<true>",
+               "raster_segmented_nearest": "raster_segmented_kernel<false>",
+               "raster_segmented_bilinear": "raster_segmented_kernel<true>"}
 
 # Published NVIDIA H100 SXM peaks (data sheet; at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -61,9 +80,11 @@ FP32_FLOPS_PER_S = 67e12
 # Arithmetic of the raster kernels, counted from their source: 12 flops for
 # the three edge functions and 5 for 1/z per (pixel, slot whose bbox holds
 # the pixel); about 100 for the winner's shading (weights, three
-# interpolations, three normalisations, headlight, level select and pack).
+# interpolations, three normalisations, headlight, level select and pack),
+# and 35 more for a bilinear texel (wrap, taps and weights per axis, four
+# weights, three 4-tap channel sums).
 VIS_FLOPS = 17
-SHADE_FLOPS = 100
+SHADE_FLOPS = {"nearest": 100, "bilinear": 135}
 TABLE_WORDS = 43 + 7       # the f32 and i32 table rows of one slot
 
 
@@ -96,8 +117,8 @@ def max_channel_err(a: np.ndarray, b: np.ndarray) -> int:
 
 
 def compare(pix_a, depth_a, pix_b, depth_b, what: str) -> dict:
-    """Hold one (pixels, depth) pair against another: raise past the bounds,
-    or where the two are not equal bit for bit."""
+    """Hold one (pixels, depth) pair (a frame or a batch) against another:
+    raise past the bounds, or where the two are not equal bit for bit."""
     pa = pix_a.cpu().numpy().view(np.uint32) if hasattr(pix_a, "cpu") else pix_a
     pb = pix_b.cpu().numpy().view(np.uint32) if hasattr(pix_b, "cpu") else pix_b
     da = depth_a.cpu().numpy() if hasattr(depth_a, "cpu") else depth_a
@@ -202,19 +223,30 @@ def flight(Camera, Input, n: int):
                        force_update=(i == 0)).copy() for i in range(n)]
 
 
+def bound_of(nbytes: int, flops: int) -> dict:
+    """The least time for ``nbytes`` and ``flops``: the larger of bytes over
+    the HBM rate and fp32 flops over the fp32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_flops),
+            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
 def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
-               textures, width, height, list_bytes) -> dict:
-    """Least time the card could take for a raster kernel's work on these
-    inputs: the larger of bytes over HBM rate and fp32 flops over the fp32
-    rate. Bytes, as this frame's data needs them: the per-tile list bounds
-    (``list_bytes``); the ``ids_read`` slot ids the tiles' lists hold; the
-    table columns of the distinct binned ``slots``; the distinct atlas words
-    the textured winners fetch (found by the plain version); both output
-    planes written once. Flops: for each binned slot, the pixels its bbox
-    holds (the only pixels whose edge functions the frame needs); plus the
-    shading of every pixel with a winner. ``tile_flops`` is the coarser count
-    of the kernels' 32 x 8 tiles, for comparison: each tile's pixels times
-    ``tile_slots``, the slots whose bbox touches the tile."""
+               textures, width, height, list_bytes, sampling) -> dict:
+    """Least time the card could take for a raster kernel's work on one
+    frame's inputs: ``bound_of`` its bytes and flops. Bytes, as this frame's
+    data needs them: the per-tile list bounds (``list_bytes``); the
+    ``ids_read`` slot ids the tiles' lists hold; the table columns of the
+    distinct binned ``slots``; the distinct atlas words the textured winners
+    fetch (one per winner for nearest, the four taps for bilinear; found by
+    the plain version); both output planes written once. Flops: for each
+    binned slot, the pixels its bbox holds (the only pixels whose edge
+    functions the frame needs); plus the shading of every pixel with a
+    winner. ``tile_flops`` is the coarser count of the kernels' 32 x 8
+    tiles, for comparison: each tile's pixels times ``tile_slots``, the slots
+    whose bbox touches the tile."""
     tile_w, tile_h = raster.TILE_W, raster.TILE_H
     ntx = -(-width // tile_w)
     ty, tx = np.divmod(np.arange(tile_slots.size), ntx)
@@ -227,40 +259,39 @@ def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
                    * (y1.clamp(max=height - 1) - y0.clamp(min=0) + 1).clamp(min=0)
                    ).sum())
     covered = int((win >= 0).sum().item())
-    texels = int(raster.fetched_texels(best, win, trf, tri,
-                                       textures.shape[0]).numel())
+    texels = int(raster.fetched_texels(best, win, trf, tri, textures.shape[0],
+                                       sampling).numel())
     nbytes = (list_bytes + ids_read * 4 + slots.numel() * TABLE_WORDS * 4
               + texels * 4 + width * height * 8)
-    flops = VIS_FLOPS * bbox_px + SHADE_FLOPS * covered
+    flops = VIS_FLOPS * bbox_px + SHADE_FLOPS[sampling] * covered
     tile_flops = (VIS_FLOPS * int((tile_slots * tile_px).sum())
-                  + SHADE_FLOPS * covered)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / FP32_FLOPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_flops),
-            "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-            "bytes": nbytes, "flops": flops, "atlas_words_fetched": texels,
+                  + SHADE_FLOPS[sampling] * covered)
+    return {**bound_of(nbytes, flops), "atlas_words_fetched": texels,
             "bbox_slots_per_pixel": bbox_px / (width * height),
             "tile_flops": tile_flops,
-            "tile_bound_ms": max(t_bytes, tile_flops / FP32_FLOPS_PER_S * 1e3),
+            "tile_bound_ms": bound_of(nbytes, tile_flops)["bound_ms"],
             "binned_slots_per_pixel": float((tile_slots * tile_px).sum()
                                             / (width * height))}
 
 
-def flat_bound(raster, counts, ids, trf, tri, textures, width, height) -> dict:
-    """work_bound of raster_flat_nearest: each tile's list is its binned
-    slots."""
+def flat_bound(raster, counts, ids, trf, tri, textures, width, height,
+               sampling) -> dict:
+    """work_bound of a flat kernel on one frame: each tile's list is its
+    binned slots."""
     c = counts.reshape(-1).to("cpu").numpy().astype(np.int64)
     best, win = raster.visibility_plain(counts, ids, trf, tri, width=width,
                                         height=height)
     binned = ids.new_tensor(raster._binned_slots(counts, ids))
     return work_bound(raster, c, int(c.sum()), binned, best, win, trf, tri,
-                      textures, width, height, c.size * 4)
+                      textures, width, height, c.size * 4, sampling)
 
 
-def segmented_bound(raster, binned, trf, tri, textures, width, height) -> dict:
-    """work_bound of raster_segmented_nearest: a tile's slots are its segment
-    and the broadband slots whose bbox touches it; the broadband walk over
-    slots that miss the tile is the design's cost, not the work's."""
+def segmented_bound(raster, binned, trf, tri, textures, width, height,
+                    sampling) -> dict:
+    """work_bound of a segmented kernel on one frame: a tile's slots are its
+    segment and the broadband slots whose bbox touches it; the broadband
+    walk over slots that miss the tile is the design's cost, not the
+    work's."""
     ids, starts, counts, bb, bb_count = binned
     tiles, slots = raster.segmented_pairs(*binned, tri, width=width,
                                           height=height)
@@ -270,12 +301,18 @@ def segmented_bound(raster, binned, trf, tri, textures, width, height) -> dict:
     best, win = raster.visibility_segmented_plain(*binned, trf, tri,
                                                   width=width, height=height)
     out = work_bound(raster, tile_slots, entries + wide, slots.unique(), best,
-                     win, trf, tri, textures, width, height, ntiles * 8 + 4)
+                     win, trf, tri, textures, width, height, ntiles * 8 + 4,
+                     sampling)
     return {**out, "entries": entries, "broadband_slots": wide}
 
 
 def run() -> dict:
     import torch
+
+    t_start = time.perf_counter()
+
+    def phase(name):
+        print(f"== {name} (at {time.perf_counter() - t_start:.1f} s)", flush=True)
 
     # ---- 1. device ----
     check(torch.cuda.is_available(), "torch.cuda.is_available() is false")
@@ -288,7 +325,7 @@ def run() -> dict:
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}", flush=True)
 
-    from swift3drenderer_tpu_torch import Camera, Input, kernels
+    from swift3drenderer_tpu_torch import Camera, Input, RenderConfig, kernels
     from swift3drenderer_tpu_torch.config import DEFAULT_CONFIG
     from swift3drenderer_tpu_torch.models import SCENES, default_scene
     from swift3drenderer_tpu_torch.ops import raster
@@ -296,6 +333,7 @@ def run() -> dict:
         Renderer, build_setup, scene_to_device)
 
     # ---- 2. build ----
+    phase("2. build")
     t0 = time.perf_counter()
     log = kernels.build()
     build_s = time.perf_counter() - t0
@@ -307,22 +345,27 @@ def run() -> dict:
 
     dev = torch.device("cuda")
     cfg = DEFAULT_CONFIG
+    bilinear = RenderConfig(sampling="bilinear")
     bg = cfg.background_packed
     poses = flight(Camera, Input, FLIGHT_POSES)
+    poses40 = flight(Camera, Input, 40)
     scenes = {"default": default_scene(seed=0),
               "stress840": SCENES["stress"](seed=0, objects=STRESS_OBJECTS),
-              "stress100k": SCENES["stress100k"](seed=0)}
+              "stress100k": SCENES["stress100k"](seed=0),
+              "icosahedron": SCENES["icosahedron"](seed=0),
+              "tetrahedron": SCENES["tetrahedron"](seed=0)}
     arrays = {name: scene_to_device(sc, dev) for name, sc in scenes.items()}
     for name, sc in scenes.items():
         print(f"scene {name}: {sc.num_triangles} triangles, "
               f"{2 * sc.num_triangles} slots", flush=True)
 
     def setup_of(m, width, height, arr):
-        return build_setup(arr, torch.as_tensor(m, device=dev), width=width,
-                           height=height, config=cfg)
+        """The setup table of one frame (m (3, 4)) or a batch (B, 3, 4)."""
+        return build_setup(arr, torch.as_tensor(np.asarray(m), device=dev),
+                           width=width, height=height, config=cfg)
 
     def flat_tables(m, width, height, arr):
-        """The setup table of one frame, and the flat kernel's inputs."""
+        """The setup table, and the flat kernels' inputs."""
         setup = setup_of(m, width, height, arr)
         ids, counts = raster.bin_triangles(setup, width=width, height=height,
                                            tile_h=raster.TILE_H,
@@ -331,91 +374,137 @@ def run() -> dict:
         return setup, (counts, ids, trf, tri)
 
     def seg_tables(m, width, height, arr, k=raster.SEG_K):
-        """The setup table of one frame, and the segmented kernel's inputs:
+        """The setup table, and the segmented kernels' inputs:
         (ids, starts, counts, bb, bb_count), trf, tri."""
         setup = setup_of(m, width, height, arr)
         trf, tri = raster.pack_setup_tables(setup)
         return setup, raster.bin_segments(setup, width=width, height=height,
                                           k=k), trf, tri
 
+    def kernel_of(route, sampling):
+        return f"raster_{route}_{sampling}"
+
     # ---- 3. kernels vs plain versions on the card ----
-    flat_errs, seg_errs = {}, {}
+    phase("3. kernels vs plain versions")
+    errs = {k: {} for k in KERNELS}
 
     def report(store, key, res, what):
         store[key] = res
         print(f"{what}: {json.dumps(res)}", flush=True)
 
-    for width, height in RESOLUTIONS:
-        kw = dict(width=width, height=height, background=bg)
-        for pose in (0, FLIGHT_POSES - 1):
-            setup, args = flat_tables(poses[pose], width, height,
-                                      arrays["default"])
+    def hold(name, key, inputs, tex, kw, what):
+        """Kernel ``name`` against its plain version on the same inputs."""
+        pk, dk = getattr(raster, name)(*inputs, tex, **kw)
+        pp, dp = getattr(raster, f"{name}_plain")(*inputs, tex, **kw)
+        what = f"{name} vs plain {what}"
+        report(errs[name], key, compare(pk, dk, pp, dp, what), what)
+        return pk, dk
+
+    for sampling in ("nearest", "bilinear"):
+        flat, seg = kernel_of("flat", sampling), kernel_of("segmented", sampling)
+        for width, height in RESOLUTIONS:
+            kw = dict(width=width, height=height, background=bg)
             tex = arrays["default"]["textures"]
-            pk, dk = raster.raster_flat_nearest(*args, tex, **kw)
-            pp, dp = raster.raster_flat_nearest_plain(*args, tex, **kw)
-            what = f"raster_flat_nearest vs plain {width}x{height} pose {pose}"
-            report(flat_errs, (width, height, pose),
-                   compare(pk, dk, pp, dp, what), what)
-            # The segmented kernel on the same table: the flat kernel's frame.
-            binned = raster.bin_segments(setup, width=width, height=height)
-            ps, ds = raster.raster_segmented_nearest(*binned, *args[2:], tex, **kw)
-            what = (f"raster_segmented_nearest vs raster_flat_nearest default "
-                    f"{width}x{height} pose {pose}")
-            report(seg_errs, ("default", width, height, pose),
-                   compare(ps, ds, pk, dk, what), what)
+            for pose in (0, FLIGHT_POSES - 1):
+                setup, args = flat_tables(poses[pose], width, height,
+                                          arrays["default"])
+                pk, dk = hold(flat, (width, height, pose), args, tex, kw,
+                              f"{width}x{height} pose {pose}")
+                # The segmented kernel on the same table: the flat kernel's frame.
+                binned = raster.bin_segments(setup, width=width, height=height)
+                ps, ds = getattr(raster, seg)(*binned, *args[2:], tex, **kw)
+                what = (f"{seg} vs {flat} default {width}x{height} pose {pose}")
+                report(errs[seg], ("default", width, height, pose),
+                       compare(ps, ds, pk, dk, what), what)
 
     # The other small scene families, flown into (near-plane splits), at a
-    # frame width that leaves a ragged column of tiles.
+    # frame width that leaves a ragged column of tiles; the textured ones
+    # also with bilinear sampling.
     cam = Camera()
     into = [cam.update(Input(up=2.0), force_update=(i == 0)).copy()
             for i in range(6)]
     for name in ("tetrahedron", "icosahedron", "anisotropic", "clipping"):
         arr = scene_to_device(SCENES[name](seed=0), dev)
         kw = dict(width=RAGGED[0], height=RAGGED[1], background=bg)
+        samplings = (("nearest", "bilinear") if name in ("icosahedron", "anisotropic")
+                     else ("nearest",))
         for pose in (0, 5):
             _, args = flat_tables(into[pose], *RAGGED, arr)
-            pk, dk = raster.raster_flat_nearest(*args, arr["textures"], **kw)
-            pp, dp = raster.raster_flat_nearest_plain(*args, arr["textures"], **kw)
-            what = (f"raster_flat_nearest vs plain {name} "
-                    f"{RAGGED[0]}x{RAGGED[1]} pose {pose}")
-            report(flat_errs, (name, pose), compare(pk, dk, pp, dp, what), what)
+            for sampling in samplings:
+                hold(kernel_of("flat", sampling), (name, pose), args,
+                     arr["textures"], kw,
+                     f"{name} {RAGGED[0]}x{RAGGED[1]} pose {pose}")
 
-    # The large scenes through the segmented kernel.
-    seg_cases = [("stress840", w, h, pose) for w, h in RESOLUTIONS
-                 for pose in (0, FLIGHT_POSES - 1)]
-    seg_cases += [("regular_floor", *RAGGED, 0), ("stress100k", *RAGGED, 0),
-                  ("stress100k", *RESOLUTIONS[0], 0)]
+    # The large scenes through the segmented kernels.
+    seg_cases = [("stress840", w, h, pose, ("nearest", "bilinear"))
+                 for w, h in RESOLUTIONS for pose in (0, FLIGHT_POSES - 1)]
+    seg_cases += [("regular_floor", *RAGGED, 0, ("nearest",)),
+                  ("stress100k", *RAGGED, 0, ("nearest",)),
+                  ("stress100k", *RESOLUTIONS[0], 0, ("nearest", "bilinear"))]
     arrays["regular_floor"] = scene_to_device(SCENES["regular_floor"](seed=0), dev)
-    for name, width, height, pose in seg_cases:
+    for name, width, height, pose, samplings in seg_cases:
         _, binned, trf, tri = seg_tables(poses[pose], width, height, arrays[name])
-        tex = arrays[name]["textures"]
         kw = dict(width=width, height=height, background=bg)
-        pk, dk = raster.raster_segmented_nearest(*binned, trf, tri, tex, **kw)
-        pp, dp = raster.raster_segmented_nearest_plain(*binned, trf, tri, tex, **kw)
-        what = (f"raster_segmented_nearest vs plain {name} {width}x{height} "
-                f"pose {pose} (S {trf.shape[1]}, entries "
-                f"{int(binned[2].sum())}, broadband {int(binned[4][0])})")
-        report(seg_errs, (name, width, height, pose),
-               compare(pk, dk, pp, dp, what), what)
+        for sampling in samplings:
+            hold(kernel_of("segmented", sampling), (name, width, height, pose),
+                 (*binned, trf, tri), arrays[name]["textures"], kw,
+                 f"{name} {width}x{height} pose {pose} (S {trf.shape[1]}, "
+                 f"entries {int(binned[2].sum())}, broadband "
+                 f"{int(binned[4][0])})")
+
+    # Each kernel's batched launch (B = 4: the flight's first four poses at
+    # 1920x1080) against its plain version and against its launches frame
+    # by frame.
+    width, height = RESOLUTIONS[0]
+    kw = dict(width=width, height=height, background=bg)
+    for route, name in (("flat", "default"), ("segmented", "stress840")):
+        tables = flat_tables if route == "flat" else seg_tables
+        _, *args = tables(np.stack(poses[:4]), width, height, arrays[name])
+        args = args[0] if route == "flat" else (*args[0], *args[1:])
+        tex = arrays[name]["textures"]
+        for sampling in ("nearest", "bilinear"):
+            kernel = kernel_of(route, sampling)
+            pb, db = hold(kernel, (name, "B=4"), args, tex, kw,
+                          f"{name} B=4 {width}x{height}")
+            launch = getattr(raster, kernel)
+            singles = [launch(*(t[b] for t in args), tex, **kw) for b in range(4)]
+            what = f"{kernel} B=4 launch vs 4 single launches {name}"
+            report(errs[kernel], (name, "B=4 vs singles"), compare(
+                pb, db, torch.stack([p for p, _ in singles]),
+                torch.stack([d for _, d in singles]), what), what)
 
     # ---- 4. the main paths ----
-    def drive(name, renderer, runs, want):
-        """Render ``runs`` ((width, height), poses) with both launch counts
-        set to 0 just before; check the counts just after against ``want``
-        (flat, segmented) launches per frame, and each frame."""
-        raster.raster_flat_nearest.launches = 0
-        raster.raster_segmented_nearest.launches = 0
-        frames = [((w, h), renderer.render_device(m, w, h))
-                  for (w, h), ms in runs for m in ms]
+    phase("4. main paths")
+    launches = {k: 0 for k in KERNELS}
+
+    def drive(name, renderer, runs, want, batch=0, min_drawn=0.2):
+        """Render ``runs`` ((width, height), poses): frame by frame, or in
+        calls of ``batch`` poses through render_batch, with the four launch
+        counts set to 0 just before; check the counts just after against
+        ``want`` ({kernel: launches per call}), each frame, and (batches)
+        each frame against its single-frame render."""
+        for k in KERNELS:
+            getattr(raster, k).launches = 0
+        if batch:
+            calls = [((w, h), ms[i:i + batch]) for (w, h), ms in runs
+                     for i in range(0, len(ms), batch)]
+            outs = [(size, renderer.render_batch(np.stack(ms), *size))
+                    for size, ms in calls]
+            frames = [(size, (p[b], d[b])) for size, (p, d) in outs
+                      for b in range(p.shape[0])]
+        else:
+            calls = [((w, h), [m]) for (w, h), ms in runs for m in ms]
+            frames = [(size, renderer.render_device(ms[0], *size))
+                      for size, ms in calls]
         torch.cuda.synchronize()
-        got = (raster.raster_flat_nearest.launches,
-               raster.raster_segmented_nearest.launches)
-        n = len(frames)
-        print(f"main path {name}: {n} frames, raster_flat_nearest launches "
-              f"{got[0]}, raster_segmented_nearest launches {got[1]}",
-              flush=True)
-        check(got == (want[0] * n, want[1] * n),
-              f"{name}: launches (flat, segmented) {got} for {n} frames")
+        got = {k: getattr(raster, k).launches for k in KERNELS}
+        n = len(calls)
+        print(f"main path {name}: {len(frames)} frames in {n} calls, "
+              f"launches {json.dumps(got)}", flush=True)
+        check(got == {k: want.get(k, 0) * n for k in KERNELS},
+              f"{name}: launches {got} for {n} calls, want {want} per call")
+        for k in KERNELS:
+            launches[k] += got[k]
         for (w, h), (pix, depth) in frames:
             check(tuple(pix.shape) == (h, w) and pix.dtype == torch.int32,
                   f"{name}: pixels {tuple(pix.shape)} {pix.dtype} at {w}x{h}")
@@ -425,96 +514,176 @@ def run() -> dict:
             pix = next(p for size, (p, _) in frames if size == (w, h))
             drawn = float((pix != bg).float().mean())
             print(f"  {name} {w}x{h} pose 0: {drawn:.3f} of pixels drawn")
-            check(drawn > 0.2, f"only {drawn} of the frame drawn at {w}x{h}")
-        return got
+            check(drawn > min_drawn,
+                  f"only {drawn} of the frame drawn at {w}x{h}")
+        if batch:
+            singles = [renderer.render_device(m, w, h) for (w, h), ms in runs
+                       for m in ms]
+            for ((w, h), (p, d)), (ps, ds) in zip(frames, singles):
+                compare(p, d, ps, ds, f"{name}: batch frame vs single frame")
+            print(f"  {name}: {len(frames)} batch frames bit-equal to their "
+                  f"single-frame renders", flush=True)
 
     renderers = {name: Renderer(scenes[name], device="cuda")
-                 for name in ("default", "stress840", "stress100k")}
-    flat_launches, _ = drive("default", renderers["default"],
-                             [(size, poses) for size in RESOLUTIONS], (1, 0))
-    seg_launches = drive("stress840", renderers["stress840"],
-                         [(size, poses) for size in RESOLUTIONS], (0, 1))[1]
-    seg_launches += drive("stress100k", renderers["stress100k"],
-                          [(RESOLUTIONS[0], poses[:POSES_100K])], (0, 1))[1]
+                 for name in ("default", "stress840", "stress100k", "tetrahedron")}
+    renderers.update({f"{name} bilinear": Renderer(scenes[name], bilinear,
+                                                   device="cuda")
+                      for name in ("default", "stress840", "icosahedron")})
+    fly = [(size, poses) for size in RESOLUTIONS]
+    drive("default", renderers["default"], fly, {"raster_flat_nearest": 1})
+    drive("stress840", renderers["stress840"], fly,
+          {"raster_segmented_nearest": 1})
+    drive("stress100k", renderers["stress100k"],
+          [(RESOLUTIONS[0], poses[:POSES_100K])], {"raster_segmented_nearest": 1})
+    drive("icosahedron bilinear", renderers["icosahedron bilinear"],
+          [(RESOLUTIONS[0], poses)], {"raster_flat_bilinear": 1})
+    drive("default bilinear", renderers["default bilinear"], fly,
+          {"raster_flat_bilinear": 1})
+    drive("stress840 bilinear", renderers["stress840 bilinear"],
+          [(RESOLUTIONS[0], poses)], {"raster_segmented_bilinear": 1})
+    drive("default B=4", renderers["default"], [(RESOLUTIONS[0], poses)],
+          {"raster_flat_nearest": 1}, batch=4)
+    # The one tetrahedron covers about a fifth of the frame.
+    drive("tetrahedron B=8", renderers["tetrahedron"], [(CONFIG1, poses40)],
+          {"raster_flat_nearest": 1}, batch=8, min_drawn=0.1)
 
     small_scenes = {"default": scenes["default"],
                     "stress128": SCENES["stress"](seed=0, objects=128)}
     for name, sc in small_scenes.items():
-        on_card = (renderers["default"] if name == "default"
-                   else Renderer(sc, device="cuda"))
-        on_cpu = Renderer(sc, device="cpu")
-        sizes = (SMALL, RAGGED_SMALL) if name == "default" else (SMALL,)
-        for width, height in sizes:
-            for pose in (0, 10, FLIGHT_POSES - 1):
-                pg, dg = on_card.render(poses[pose], width, height)
-                pc, dc = on_cpu.render(poses[pose], width, height)
-                what = f"cuda vs cpu renderer {name} {width}x{height} pose {pose}"
-                res = compare(pg, dg, pc, dc, what)
-                print(f"{what}: {json.dumps(res)}", flush=True)
+        for config in (cfg, bilinear):
+            on_card = Renderer(sc, config, device="cuda")
+            on_cpu = Renderer(sc, config, device="cpu")
+            sizes = ((SMALL, RAGGED_SMALL) if name == "default"
+                     and config is cfg else (SMALL,))
+            picks = ((0, 10, FLIGHT_POSES - 1) if config is cfg
+                     else (0, FLIGHT_POSES - 1))
+            for width, height in sizes:
+                for pose in picks:
+                    pg, dg = on_card.render(poses[pose], width, height)
+                    pc, dc = on_cpu.render(poses[pose], width, height)
+                    what = (f"cuda vs cpu renderer {name} {config.sampling} "
+                            f"{width}x{height} pose {pose}")
+                    res = compare(pg, dg, pc, dc, what)
+                    print(f"{what}: {json.dumps(res)}", flush=True)
+            ms = np.stack(poses[:3])
+            pg, dg = on_card.render_batch(ms, *SMALL)
+            pc, dc = on_cpu.render_batch(ms, *SMALL)
+            what = (f"cuda vs cpu render_batch {name} {config.sampling} "
+                    f"B=3 {SMALL[0]}x{SMALL[1]}")
+            print(f"{what}: {json.dumps(compare(pg, dg, pc, dc, what))}",
+                  flush=True)
 
     # ---- 5. timings ----
-    rows = [("default", size, poses) for size in RESOLUTIONS]
-    rows += [("stress840", size, poses) for size in RESOLUTIONS]
-    rows += [("stress100k", RESOLUTIONS[0], poses[:POSES_100K])]
+    phase("5. timings")
     table = []
 
-    def frame_times(renderer, ms, width, height):
-        per_frame = []
-        for m in ms:
+    def cell(name, renderer, size, ms, sampling="nearest", batch=0):
+        return {"name": name, "renderer": renderer, "size": size, "ms": ms,
+                "sampling": sampling, "batch": batch}
+
+    cells = [cell("default", "default", size, poses) for size in RESOLUTIONS]
+    cells += [cell("stress840", "stress840", size, poses) for size in RESOLUTIONS]
+    cells += [cell("stress100k", "stress100k", RESOLUTIONS[0],
+                   poses[:POSES_100K]),
+              cell("icosahedron bilinear", "icosahedron bilinear",
+                   RESOLUTIONS[0], poses, "bilinear")]
+    cells += [cell("default bilinear", "default bilinear", size, poses,
+                   "bilinear") for size in RESOLUTIONS]
+    cells += [cell("stress840 bilinear", "stress840 bilinear", RESOLUTIONS[0],
+                   poses, "bilinear"),
+              cell("default B=4", "default", RESOLUTIONS[0], poses, batch=4),
+              cell("tetrahedron B=8", "tetrahedron", CONFIG1, poses40, batch=8)]
+
+    def calls_of(c):
+        step = c["batch"] or 1
+        return [c["ms"][i:i + step] for i in range(0, len(c["ms"]), step)]
+
+    def render_call(renderer, ms, width, height, batch):
+        if batch:
+            return renderer.render_batch(np.stack(ms), width, height)
+        return renderer.render_device(ms[0], width, height)
+
+    def call_times(renderer, calls, width, height, batch):
+        per_call = []
+        for ms in calls:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            renderer.render_device(m, width, height)
+            render_call(renderer, ms, width, height, batch)
             end.record()
             end.synchronize()
-            per_frame.append(start.elapsed_time(end))
-        return per_frame
+            per_call.append(start.elapsed_time(end))
+        return per_call
 
-    for name, (width, height), ms in rows:
-        renderer, arr = renderers[name], arrays[name]
-        per_frame = frame_times(renderer, ms, width, height)
-        mt = torch.as_tensor(ms[0], device=dev)
+    def frame_times(renderer, ms, width, height):
+        return call_times(renderer, [[m] for m in ms], width, height, 0)
+
+    for c in cells:
+        (width, height), b, sampling = c["size"], c["batch"], c["sampling"]
+        renderer = renderers[c["renderer"]]
+        arr = renderer.dev
         tex = arr["textures"]
+        calls = calls_of(c)
+        per_call = call_times(renderer, calls, width, height, b)
+        first = np.stack(calls[0]) if b else calls[0][0]
+        mt = torch.as_tensor(first, device=dev)
         kw = dict(width=width, height=height, background=bg)
         stage_ms = {"build_setup": time_ms(torch, lambda: build_setup(
             arr, mt, width=width, height=height, config=cfg), 20)}
-        if name == "default":
-            kernel = "raster_flat_nearest"
-            setup, (counts, ids, trf, tri) = flat_tables(ms[0], width, height, arr)
+        route = "flat" if 2 * arr["vert_c"].shape[0] <= raster.FLAT_MAX_SLOTS \
+            else "segmented"
+        kernel = kernel_of(route, sampling)
+        frames = range(b) if b else [None]
+
+        def frame_of(args, i):
+            return args if i is None else tuple(t[i] for t in args)
+
+        if route == "flat":
+            setup, args = flat_tables(first, width, height, arr)
             stage_ms["bin_triangles"] = time_ms(torch, lambda: raster.bin_triangles(
                 setup, width=width, height=height, tile_h=raster.TILE_H,
                 tile_w=raster.TILE_W), 20)
-            args = (counts, ids, trf, tri, tex)
-            bound = flat_bound(raster, counts, ids, trf, tri, tex, width, height)
-            launch, plain = raster.raster_flat_nearest, raster.raster_flat_nearest_plain
+            bounds = [flat_bound(raster, *frame_of(args, i), tex, width, height,
+                                 sampling) for i in frames]
         else:
-            kernel = "raster_segmented_nearest"
-            setup, binned, trf, tri = seg_tables(ms[0], width, height, arr)
+            setup, binned, trf, tri = seg_tables(first, width, height, arr)
             stage_ms["bin_segments"] = time_ms(torch, lambda: raster.bin_segments(
                 setup, width=width, height=height), 20)
-            args = (*binned, trf, tri, tex)
-            bound = segmented_bound(raster, binned, trf, tri, tex, width, height)
-            launch = raster.raster_segmented_nearest
-            plain = raster.raster_segmented_nearest_plain
+            args = (*binned, trf, tri)
+            bounds = [segmented_bound(raster, frame_of(binned, i),
+                                      *frame_of((trf, tri), i), tex, width,
+                                      height, sampling) for i in frames]
         stage_ms["pack_setup_tables"] = time_ms(
             torch, lambda: raster.pack_setup_tables(setup), 20)
-        row = {"scene": name, "at": f"{width}x{height}", "kernel": kernel,
-               "slots": trf.shape[1], "frames": len(ms),
-               "frame_ms_median": statistics.median(per_frame),
-               "frame_ms_min": min(per_frame), "frame_ms_max": max(per_frame),
+        bound = bounds[0]
+        if b:   # the batch's work is its frames' work
+            bound = {**bound_of(sum(x["bytes"] for x in bounds),
+                                sum(x["flops"] for x in bounds)),
+                     "atlas_words_fetched": sum(x["atlas_words_fetched"]
+                                                for x in bounds)}
+        launch = getattr(raster, kernel)
+        plain = getattr(raster, f"{kernel}_plain")
+        row = {"scene": c["name"], "at": f"{width}x{height}", "kernel": kernel,
+               "batch": b or 1, "slots": int(args[-1].shape[-1]),
+               "calls": len(calls),
+               "frame_ms_median": statistics.median(per_call) / (b or 1),
+               "frame_ms_min": min(per_call) / (b or 1),
+               "frame_ms_max": max(per_call) / (b or 1),
+               "call_ms_median": statistics.median(per_call),
                "stage_ms": stage_ms,
-               "ms": time_cold_ms(torch, lambda: launch(*args, **kw)),
-               "plain_ms": time_ms(torch, lambda: plain(*args, **kw), 2,
+               "ms": time_cold_ms(torch, lambda: launch(*args, tex, **kw)),
+               "plain_ms": time_ms(torch, lambda: plain(*args, tex, **kw), 2,
                                    warmup=1),
                **bound}
         table.append(row)
-        print(f"timing {name} {width}x{height}: {json.dumps(row)}", flush=True)
+        print(f"timing {c['name']} {width}x{height}: {json.dumps(row)}",
+              flush=True)
 
     # The segmented binner's K: entries, broadband slots, the sort and the
     # kernel at pose 0 (the 32 x 8 tile is fixed by the kernel).
-    for name, (width, height), ms in rows[2:]:
-        arr = arrays[name]
-        setup = setup_of(ms[0], width, height, arr)
+    for c in cells[2:5]:
+        (width, height), arr = c["size"], renderers[c["renderer"]].dev
+        setup = setup_of(c["ms"][0], width, height, arr)
         trf, tri = raster.pack_setup_tables(setup)
         kw = dict(width=width, height=height, background=bg)
         for k in SEG_K_SWEEP:
@@ -523,13 +692,15 @@ def run() -> dict:
             res = {"k": k, "entries": int(binned[2].sum()),
                    "broadband_slots": int(binned[4][0]),
                    "sort_us": 1e3 * time_ms(
-                       torch, lambda: torch.sort(keys, stable=True), 20),
+                       torch, lambda: torch.sort(keys, stable=True), 10,
+                       windows=3),
                    "bin_segments_ms": time_ms(torch, lambda: raster.bin_segments(
-                       setup, width=width, height=height, k=k), 20),
+                       setup, width=width, height=height, k=k), 10, windows=3),
                    "kernel_ms_cold": time_cold_ms(
                        torch, lambda: raster.raster_segmented_nearest(
                            *binned, trf, tri, arr["textures"], **kw), reps=20)}
-            print(f"seg_k {name} {width}x{height}: {json.dumps(res)}", flush=True)
+            print(f"seg_k {c['name']} {width}x{height}: {json.dumps(res)}",
+                  flush=True)
 
     # The default scene through either route, the segmented one forced by
     # lifting the flat route's slot limit: the two frames (bit-equal), the
@@ -547,12 +718,12 @@ def run() -> dict:
     arr, tex = arrays["default"], arrays["default"]["textures"]
     routes = {}
     for width, height in RESOLUTIONS:
-        def fly(route):
+        def route_flight(route):
             return on_route(route, lambda: frame_times(
                 renderers["default"], poses, width, height))
 
-        flat_f, seg_f = fly("flat"), fly("segmented")
-        seg_f, flat_f = seg_f + fly("segmented"), flat_f + fly("flat")
+        flat_f, seg_f = route_flight("flat"), route_flight("segmented")
+        seg_f, flat_f = seg_f + route_flight("segmented"), flat_f + route_flight("flat")
         pf, df = on_route("flat", lambda: renderers["default"].render_device(
             poses[0], width, height))
         ps, ds = on_route("segmented", lambda: renderers[
@@ -580,33 +751,76 @@ def run() -> dict:
         routes[(width, height)] = res
         print(f"route default {width}x{height}: {json.dumps(res)}", flush=True)
 
+    # The serving sweep: the default scene's flight, SWEEP_FRAMES frames per
+    # setting, in calls of B poses through render_batch; ms per frame from
+    # CUDA events around each call; the batched raster launch L2 cold.
+    sweep = []
+    for width, height in RESOLUTIONS:
+        for b in BATCH_SWEEP:
+            calls = [poses[i:i + b] for i in range(0, SWEEP_FRAMES, b)]
+            per_call = call_times(renderers["default"], calls, width, height, b)
+            _, args = flat_tables(np.stack(calls[0]), width, height, arr)
+            kw = dict(width=width, height=height, background=bg)
+            res = {"at": f"{width}x{height}", "batch": b, "calls": len(calls),
+                   "call_ms_median": statistics.median(per_call),
+                   "ms_per_frame": sum(per_call) / SWEEP_FRAMES,
+                   "raster_kernel_ms_cold": time_cold_ms(
+                       torch, lambda: raster.raster_flat_nearest(*args, tex, **kw
+                                                                 ), reps=20)}
+            sweep.append(res)
+            print(f"batch sweep default {width}x{height} B={b}: "
+                  f"{json.dumps(res)}", flush=True)
+
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
-    for row, (name, (width, height), ms) in zip(table, rows):
+    phase("6. profiles")
+    for row, c in zip(table, cells):
+        (width, height), b = c["size"], c["batch"]
+        renderer, calls = renderers[c["renderer"]], calls_of(c)
         prof = device_busy(torch, lambda: [
-            renderers[name].render_device(m, width, height) for m in ms])
+            render_call(renderer, ms, width, height, b) for ms in calls])
+        nframes = len(c["ms"])
         row["device_busy_share"] = prof["busy"]
-        row["device_kernels_per_frame"] = prof["launched"] / len(ms)
+        row["device_kernels_per_frame"] = prof["launched"] / nframes
+        row["device_kernels_per_call"] = prof["launched"] / len(calls)
         row["d2h_copies"] = prof["d2h"]
         row["scalar_reads"] = prof["scalar_reads"]
         in_flight = sum(us for k, us in prof["per_kernel"].items()
-                        if row["kernel"] in k)
-        row["ms_in_flight"] = (in_flight / len(ms) / 1e3 if in_flight
+                        if TRACE_NAMES[row["kernel"]] in k)
+        row["ms_in_flight"] = (in_flight / nframes / 1e3 if in_flight
                                else "not measured")
         by_class = {}   # names cut to 60 characters group template instances
         for k, us in prof["per_kernel"].items():
             by_class[k[:60]] = by_class.get(k[:60], 0.0) + us
         top = dict(sorted(by_class.items(), key=lambda kv: kv[1],
                           reverse=True)[:6])
-        print(f"profile {name} {width}x{height}: device busy share "
+        print(f"profile {c['name']} {width}x{height}: device busy share "
               f"{prof['busy']}, {row['device_kernels_per_frame']} kernels per "
-              f"frame, {row['kernel']} {row['ms_in_flight']} ms per frame, "
+              f"frame ({row['device_kernels_per_call']} per call), "
+              f"{row['kernel']} {row['ms_in_flight']} ms per frame, "
               f"device-to-host copies {prof['d2h']}, scalar reads "
-              f"{prof['scalar_reads']}, top kernels (us over {len(ms)} frames) "
+              f"{prof['scalar_reads']}, top kernels (us over {nframes} frames) "
               f"{json.dumps(top)}", flush=True)
         check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
-              f"{name} {width}x{height}: the flight copied to the host "
+              f"{c['name']} {width}x{height}: the flight copied to the host "
               f"({prof['d2h']} copies, {prof['scalar_reads']} scalar reads)")
+
+    for res in sweep:
+        width, height = map(int, res["at"].split("x"))
+        b = res["batch"]
+        calls = [poses[i:i + b] for i in range(0, SWEEP_FRAMES, b)]
+        prof = device_busy(torch, lambda: [render_call(
+            renderers["default"], ms, width, height, b) for ms in calls])
+        res["device_busy_share"] = prof["busy"]
+        res["kernels_per_call"] = prof["launched"] / len(calls)
+        res["device_us_per_frame"] = sum(prof["per_kernel"].values()) / SWEEP_FRAMES
+        res["raster_us_per_frame"] = sum(
+            us for k, us in prof["per_kernel"].items()
+            if TRACE_NAMES["raster_flat_nearest"] in k) / SWEEP_FRAMES
+        print(f"batch sweep profile default {res['at']} B={b}: {json.dumps(res)}",
+              flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"batch sweep {res['at']} B={b}: copied to the host")
 
     for (width, height), res in routes.items():
         for route in ("flat", "segmented"):
@@ -622,21 +836,21 @@ def run() -> dict:
         print(f"route profile default {width}x{height}: {json.dumps(res)}",
               flush=True)
 
-    def kernel_row(name, replaces, launches, errs, main_scene):
+    def kernel_row(name, replaces, main_scene):
         rows_k = [r for r in table if r["kernel"] == name]
         main_at = "{} {}x{}".format(main_scene, *RESOLUTIONS[0])
         main = next(r for r in rows_k if f"{r['scene']} {r['at']}" == main_at)
-        errs = list(errs.values())
+        e = list(errs[name].values())
         return {
             "name": name,
             "route": "cuda",
             "source": "swift3drenderer_tpu_torch/csrc/raster.cu",
             "replaces": replaces,
-            "launches": launches,
-            "max_abs_err": max(e["max_channel_err"] for e in errs),
-            "depth_max_abs_err": max(e["depth_max_abs_err"] for e in errs),
-            "pixel_mismatch": max(e["pixel_mismatch"] for e in errs),
-            "frames_compared": len(errs),
+            "launches": launches[name],
+            "max_abs_err": max(x["max_channel_err"] for x in e),
+            "depth_max_abs_err": max(x["depth_max_abs_err"] for x in e),
+            "pixel_mismatch": max(x["pixel_mismatch"] for x in e),
+            "frames_compared": len(e),
             "tolerance": "bit-equal (checked); bounds pixel mismatch < "
                          f"{MISMATCH_BOUND} at tol 1, depth rtol {DEPTH_RTOL}",
             "at": main_at,
@@ -647,21 +861,26 @@ def run() -> dict:
             "bound_by": main["bound_by"],
             "library_ms": None,
             "shapes": [{k: r.get(k) for k in (
-                "scene", "at", "ms", "ms_in_flight", "plain_ms", "bound_ms",
-                "bound_by", "tile_bound_ms", "frame_ms_median",
-                "device_busy_share", "device_kernels_per_frame", "entries",
-                "broadband_slots")}
+                "scene", "at", "batch", "ms", "ms_in_flight", "plain_ms",
+                "bound_ms", "bound_by", "tile_bound_ms", "frame_ms_median",
+                "device_busy_share", "device_kernels_per_frame",
+                "device_kernels_per_call", "entries", "broadband_slots")}
                 for r in rows_k],
         }
 
     kernels_line = [
         kernel_row("raster_flat_nearest",
-                   "swift3drenderer_tpu/ops/raster_pallas.py:249",
-                   flat_launches, flat_errs, "default"),
+                   "swift3drenderer_tpu/ops/raster_pallas.py:249", "default"),
         kernel_row("raster_segmented_nearest",
-                   "swift3drenderer_tpu/ops/raster_pallas.py:430",
-                   seg_launches, seg_errs, "stress840"),
+                   "swift3drenderer_tpu/ops/raster_pallas.py:430", "stress840"),
+        kernel_row("raster_flat_bilinear",
+                   "swift3drenderer_tpu/ops/raster_pallas.py:618",
+                   "icosahedron bilinear"),
+        kernel_row("raster_segmented_bilinear",
+                   "swift3drenderer_tpu/ops/raster_pallas.py:1132",
+                   "stress840 bilinear"),
     ]
+    phase("done")
     print(card)
     print(json.dumps({"kernels": kernels_line}))
     return {"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,6 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/raster.cu`` holds both raster kernels behind a plain C interface (no
+``csrc/raster.cu`` holds the four raster kernels behind a plain C interface (no
 PyTorch headers, so nvcc takes seconds) and is compiled at first use into
 ``swift3drenderer_tpu_torch/_build/raster-<hash>.so`` (listed in .gitignore),
 then loaded with ctypes. The hash covers the source and the flags, so an edit
@@ -68,7 +68,8 @@ def build() -> str:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded library of ``csrc/raster.cu`` (``raster_flat_nearest``,
-    ``raster_segmented_nearest``), built first if needed."""
+    ``raster_flat_bilinear``, ``raster_segmented_nearest``,
+    ``raster_segmented_bilinear``), built first if needed."""
     build()
     lib = ctypes.CDLL(library_path())
     lib.s3d_cuda_error_string.argtypes = [ctypes.c_int]

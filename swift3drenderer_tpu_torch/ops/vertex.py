@@ -21,15 +21,18 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def _times_mt(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """``x @ m.T`` for x (N, 4), m (3, 4), summed left to right."""
-    return (x[:, 0:1] * m[:, 0] + x[:, 1:2] * m[:, 1] + x[:, 2:3] * m[:, 2]
-            + x[:, 3:4] * m[:, 3])
+    """``x @ m.T`` for x (N, 4) and m (..., 3, 4), summed left to right:
+    (..., N, 3), each frame of a batch of matrices rounded as alone."""
+    m = m[..., None, :, :]
+    return (x[:, 0:1] * m[..., 0] + x[:, 1:2] * m[..., 1]
+            + x[:, 2:3] * m[..., 2] + x[:, 3:4] * m[..., 3])
 
 
 def transform_points(vertices: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Camera-space positions: ``cv = M . v`` (render.swift:249).
 
-    vertices: (V, 4) with w == 1; m: (3, 4) row-major view matrix.
+    vertices: (V, 4) with w == 1; m: (3, 4) row-major view matrix, or a
+    (B, 3, 4) batch of them (then (B, V, 3)).
     """
     return _times_mt(vertices, m)
 

@@ -1,19 +1,24 @@
 """Device renderer: the frame pipeline of ``swift3drenderer_tpu.renderer`` and
-``ops.raster_pallas.render_frame_pallas`` on PyTorch.
+``ops.raster_pallas.render_frame_pallas`` / ``render_batch_pallas`` on
+PyTorch.
 
-  host: camera update (NumPy)  ->  (3, 4) matrix to the device
+  host: camera update (NumPy)  ->  (3, 4) matrix, or (B, 3, 4) batch, to the
+        device
   device: vertex + normal products -> near-plane clip prepass -> setup table
-  -> binning -> one raster kernel launch, raster_flat_nearest for small
-     scenes or raster_segmented_nearest for large ones (visibility,
-     shading, texel fetch) -> (H, W) packed pixels and 1/z depth
+  -> binning -> one raster kernel launch for the frame or the whole batch:
+     raster_flat_{nearest,bilinear} for small scenes or
+     raster_segmented_{nearest,bilinear} for large ones (visibility, shading,
+     texel fetch) -> (B, H, W) packed pixels and 1/z depth
 
 The scene is uploaded once, corner-major; per frame only the matrix goes to the
-device. Entry points run on the CUDA card unless the caller passes
-``device="cpu"``, which takes the plain PyTorch version of every kernel.
+device. A single frame is the batch of one. Entry points run on the CUDA card
+unless the caller passes ``device="cpu"``, which takes the plain PyTorch
+version of every kernel.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import numpy as np
@@ -47,33 +52,64 @@ def scene_to_device(scene: Scene, device) -> Dict[str, torch.Tensor]:
 
 def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
                 height: int, config: RenderConfig) -> Dict[str, torch.Tensor]:
-    """Geometry front-end: transforms, clip prepass, setup table."""
+    """Geometry front-end: transforms, clip prepass, setup table.
+
+    ``m`` is one (3, 4) matrix, or a (B, 3, 4) batch; then every setup array
+    carries a leading B, and frame b's table equals ``build_setup`` of
+    ``m[b]`` alone, key for key and bit for bit. Only the vertex and normal
+    products differ per frame; the frames are flattened frame-major into the
+    triangle axis for the clip prepass and the setup table, which work per
+    triangle and per slot, so each frame keeps its own slots in their own
+    order (the order that decides depth ties)."""
     factor = config.factor(height)
     half_w, half_h = width / 2.0, height / 2.0
     t = dev["vert_c"].shape[0]
+    lead = tuple(m.shape[:-2])
+    nb = math.prod(lead)
     cv_c = transform_points(dev["vert_c"].reshape(-1, 4), m)
     rv_c = project(cv_c, factor, half_w, half_h)
     nrm_c = transform_normals(dev["norm_c"].reshape(-1, 4), m)
+
+    def per_frame(x):            # (..., T*3, 3) -> (B*T, 3, 3)
+        return x.reshape(nb * t, 3, -1)
+
+    def shared(x):               # (T, ...) -> (B*T, ...)
+        return x.expand(nb, *x.shape).reshape(nb * t, *x.shape[1:])
+
     corners = clip_prepass(
-        cv=cv_c.reshape(t, 3, -1), rv=rv_c.reshape(t, 3, -1),
-        attr=dev["attr_c"], n=nrm_c.reshape(t, 3, -1), tex=dev["tex_c"],
+        cv=per_frame(cv_c), rv=per_frame(rv_c), attr=shared(dev["attr_c"]),
+        n=per_frame(nrm_c), tex=shared(dev["tex_c"]),
         near=config.near, factor=factor, half_w=half_w, half_h=half_h,
     )
-    return triangle_setup(corners, width, height, config.min_area)
+    setup = triangle_setup(corners, width, height, config.min_area)
+    return {k: v.reshape(*lead, 2 * t, *v.shape[1:]) for k, v in setup.items()}
+
+
+def render_frames(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
+                  width: int, height: int, config: RenderConfig = DEFAULT_CONFIG
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batch of frames (ms (B, 3, 4)) through one front-end and one raster
+    launch: (pixels (B, H, W) int32 holding 0x00RRGGBB, depth (B, H, W) f32),
+    any scene size, with no device-to-host copy. Counterpart of
+    ``render_batch_pallas``; frame b equals ``render_frame`` of ``ms[b]``."""
+    if ms.dim() != 3 or tuple(ms.shape[1:]) != (3, 4):
+        raise ValueError(f"need a (B, 3, 4) batch of matrices, got {tuple(ms.shape)}")
+    setup = build_setup(dev, ms, width=width, height=height, config=config)
+    return rasterize(setup, dev["textures"], width=width, height=height,
+                     background=config.background_packed,
+                     sampling=config.sampling)
 
 
 def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
                  height: int, config: RenderConfig = DEFAULT_CONFIG
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One frame: (pixels (H, W) int32 holding 0x00RRGGBB, depth (H, W) f32),
-    any scene size in one raster pass, with no device-to-host copy."""
-    if config.sampling != "nearest":
-        raise NotImplementedError(
-            f"sampling={config.sampling!r}: the port samples nearest only; "
-            "bilinear waits for ROADMAP queue 1 item 9")
-    setup = build_setup(dev, m, width=width, height=height, config=config)
-    return rasterize(setup, dev["textures"], width=width, height=height,
-                     background=config.background_packed)
+    the batch of one."""
+    if tuple(m.shape) != (3, 4):
+        raise ValueError(f"need a (3, 4) matrix, got {tuple(m.shape)}")
+    pix, depth = render_frames(dev, m[None], width=width, height=height,
+                               config=config)
+    return pix[0], depth[0]
 
 
 class Renderer:
@@ -87,17 +123,27 @@ class Renderer:
         self.device = resolve_device(device)
         self.dev = scene_to_device(scene, self.device)
 
+    def _matrices(self, matrices) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(matrices, np.float32),
+                               device=self.device)
+
     def render_device(self, camera_matrix, width: int, height: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render, leaving (pixels (H, W) int32, depth (H, W) f32) on the
         device."""
-        m = torch.as_tensor(np.asarray(camera_matrix, np.float32),
-                            device=self.device)
-        return render_frame(self.dev, m, width=width, height=height,
-                            config=self.config)
+        return render_frame(self.dev, self._matrices(camera_matrix),
+                            width=width, height=height, config=self.config)
 
     def render(self, camera_matrix, width: int, height: int
                ) -> Tuple[np.ndarray, np.ndarray]:
         """Render one frame; returns host (pixels (H, W) uint32, depth f32)."""
         pix, depth = self.render_device(camera_matrix, width, height)
         return pix.cpu().numpy().view(np.uint32), depth.cpu().numpy()
+
+    def render_batch(self, matrices, width: int, height: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Render a batch of camera poses ((B, 3, 4)) in one raster launch —
+        the serving path (``Renderer.render_batch`` of the JAX package).
+        Returns device tensors: pixels (B, H, W) int32, depth (B, H, W) f32."""
+        return render_frames(self.dev, self._matrices(matrices), width=width,
+                             height=height, config=self.config)

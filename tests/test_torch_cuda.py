@@ -1,7 +1,9 @@
-"""The port's CUDA kernels on the card: ``raster_flat_nearest`` and
-``raster_segmented_nearest`` against their plain PyTorch versions, and the
-CUDA renderer against the CPU one, on the default scene and on a stress field
-(3,078 slots, the segmented path).
+"""The port's CUDA kernels on the card: ``raster_flat_nearest``,
+``raster_segmented_nearest``, ``raster_flat_bilinear`` and
+``raster_segmented_bilinear`` against their plain PyTorch versions, batched
+launches against single ones, and the CUDA renderer (single frames and
+``render_batch``) against the CPU one, on the default scene and on a stress
+field (3,078 slots, the segmented path).
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -123,3 +125,80 @@ def test_cuda_renderer_equals_cpu_renderer_on_stress():
             pc, dc = on_cpu.render(m, w, h)
             np.testing.assert_array_equal(pg, pc)
             np.testing.assert_array_equal(dg, dc)
+
+
+def setups_on_card(name, ms, w, h, **scene_kw):
+    """The card's setup table of each pose, and the batch's (B = len(ms))."""
+    dev = scene_to_device(SCENES[name](seed=0, **scene_kw), "cuda")
+    batch = build_setup(dev, torch.as_tensor(np.stack(ms), device="cuda"),
+                        width=w, height=h, config=port.DEFAULT_CONFIG)
+    return dev, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flat", "segmented"])
+def test_bilinear_kernels_match_plain_on_cuda(route):
+    """raster_flat_bilinear (default scene) and raster_segmented_bilinear
+    (stress_scene(objects=128)) against their plain versions on the card,
+    bit for bit, frame by frame."""
+    need_card()
+    w, h = RAGGED
+    name, kw = (("default", {}) if route == "flat"
+                else ("stress", {"objects": 128}))
+    dev, batch = setups_on_card(name, flight(12)[::4], w, h, **kw)
+    kernel = getattr(tr, f"raster_{route}_bilinear")
+    plain = getattr(tr, f"raster_{route}_bilinear_plain")
+    for b in range(3):
+        setup = {k: v[b] for k, v in batch.items()}
+        trf, tri = tr.pack_setup_tables(setup)
+        if route == "flat":
+            binned = tr.bin_triangles(setup, width=w, height=h,
+                                      tile_h=tr.TILE_H, tile_w=tr.TILE_W)[::-1]
+        else:
+            binned = tr.bin_segments(setup, width=w, height=h)
+        before = kernel.launches
+        pk, dk = kernel(*binned, trf, tri, dev["textures"], width=w, height=h,
+                        background=BG)
+        pp, dp = plain(*binned, trf, tri, dev["textures"], width=w, height=h,
+                       background=BG)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert torch.equal(pk, pp) and torch.equal(dk, dp)
+        assert bool((pk != BG).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_batched_launch_equals_single_launches_on_cuda(sampling):
+    """A B = 3 batch in one launch of each kernel equals the three frames
+    launched one by one, bit for bit; and the card's render_batch equals the
+    CPU renderer's frames."""
+    need_card()
+    w, h = RAGGED
+    ms = flight(12)[::4]
+    for route, name, kw in (("flat", "default", {}),
+                            ("segmented", "stress", {"objects": 128})):
+        dev, batch = setups_on_card(name, ms, w, h, **kw)
+        kernel = getattr(tr, f"raster_{route}_{sampling}")
+        trf, tri = tr.pack_setup_tables(batch)
+        if route == "flat":
+            binned = tr.bin_triangles(batch, width=w, height=h,
+                                      tile_h=tr.TILE_H, tile_w=tr.TILE_W)[::-1]
+        else:
+            binned = tr.bin_segments(batch, width=w, height=h)
+        before = kernel.launches
+        pb, db = kernel(*binned, trf, tri, dev["textures"], width=w, height=h,
+                        background=BG)
+        assert kernel.launches == before + 1
+        for b in range(3):
+            ps, ds = kernel(*(t[b] for t in binned), trf[b], tri[b],
+                            dev["textures"], width=w, height=h, background=BG)
+            assert torch.equal(pb[b], ps) and torch.equal(db[b], ds)
+        config = port.RenderConfig(sampling=sampling)
+        scene = SCENES[name](seed=0, **kw)
+        pg, dg = port.Renderer(scene, config, device="cuda").render_batch(ms, w, h)
+        on_cpu = port.Renderer(scene, config, device="cpu")
+        for b, m in enumerate(ms):
+            pc, dc = on_cpu.render(m, w, h)
+            np.testing.assert_array_equal(pg[b].cpu().numpy().view(np.uint32), pc)
+            np.testing.assert_array_equal(dg[b].cpu().numpy(), dc)

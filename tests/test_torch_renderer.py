@@ -148,10 +148,11 @@ def test_renderer_defaults_to_cuda_and_never_falls_back(monkeypatch):
 def test_renderer_rejects_what_waits_for_later_slices():
     scene = PORT_SCENES["tetrahedron"](seed=0)
     m = Camera().update(Input(), force_update=True)
+    # Bilinear sampling renders now; the tetrahedron is flat-coloured, so its
+    # frame is the nearest frame.
     bilinear = port.Renderer(scene, config=RenderConfig(sampling="bilinear"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bilinear.render(m, W, H)
+    pb, db = bilinear.render(m, W, H)
     # 513 copies of the tetrahedron, 2052 triangles, make 4104 slots, past
     # the JAX package's single-pass 4096: the port renders them in one pass.
     # Copies tie in depth, so the first copy wins every pixel: the frame is
@@ -166,6 +167,8 @@ def test_renderer_rejects_what_waits_for_later_slices():
     p1, d1 = port.Renderer(scene, device="cpu").render(m, W, H)
     np.testing.assert_array_equal(px, p1)
     np.testing.assert_array_equal(depth, d1)
+    np.testing.assert_array_equal(pb, p1)
+    np.testing.assert_array_equal(db, d1)
     assert (depth > 0).mean() > 0.05
 
 
