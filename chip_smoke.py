@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (swift3drenderer_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -12,8 +12,14 @@ Phases; any failed check raises and the script exits non-zero:
      families at a ragged 1366x768; raster_segmented_nearest and
      raster_segmented_bilinear on stress_scene(objects=840) at both sizes and
      stress100k at 1920x1080 (nearest also regular_floor and stress100k at
-     1366x768), and against the flat kernels on the default scene; and each
+     1366x768), and against the flat kernels on the default scene; each
      kernel's batched launch (B = 4) against its launches frame by frame;
+     each kernel's tracking form (the winners' gid plane) against its plain
+     version, pixels, depth and gids, and its pixels and depth against the
+     kernel's own, on the default scene, stress 840 and stress100k at
+     1920x1080, the icosahedron bilinear and B = 4 batches; and frames cut
+     into 2, 4 and 8 bands (y_offset > 0), stitched, against the full frame,
+     all four kernels;
   4. drive the main paths through Renderer(..., device="cuda"), each with the
      launch counts of all four kernels set to 0 just before and read just
      after: the default scene and the 840-object stress field over bench.py's
@@ -24,7 +30,15 @@ Phases; any failed check raises and the script exits non-zero:
      1920x1080, the flight in 5 calls) and the tetrahedron (B = 8, 640x480,
      config 1), every batch frame bit-equal to its single-frame render; then
      hold the card's output against the plain CPU path on small frames (one
-     of them ragged), single frames and batches, nearest and bilinear;
+     of them ragged), single frames and batches, nearest and bilinear; then
+     the multi-device paths: render_scene_sharded on an NCCL group of one
+     rank and ShardedRenderer.render_batch on a 1 x 1 mesh (one card holds
+     one NCCL rank), and the N-rank composites run as N per-range
+     pipelines (renderer.render_range, each the device work of one rank)
+     merged with merge_depth_gid, N = 2, 4, 8, on the default scene, stress
+     840 and stress100k at 1920x1080 and, bilinear, the icosahedron and
+     stress 840, and render_batch_sharded's 2 x 4 grid as its eight rank
+     blocks: each bit-equal to the single-card render;
   5. time, with CUDA events after a warm-up: each cell's frame (or batch
      call), the front-end stages, its kernel (with the L2 cache cold, as a
      frame finds it) and plain version, beside the least time the card could
@@ -33,10 +47,16 @@ Phases; any failed check raises and the script exits non-zero:
      (flat, or segmented with the flat route's slot limit lifted): frames
      (bit-equal), binners and kernels; and the batch sweep B = 1, 2, 4, 8 at
      both sizes: ms per frame, kernels per call and the card's busy share;
+     each tracking form against its kernel with the L2 cold, the per-range
+     pipeline at N = 1, 2, 4, 8 (the device work of one rank of an N-card
+     deployment) and merge_depth_gid; with --parent DIR (a checkout of the
+     parent commit), the four kernels at y0 = 0 against the parent tree's,
+     L2 cold, in turns parent, this, this, parent;
   6. the share of each flight's wall time the card is busy, each kernel's
      device time per frame in the flight, and the device-to-host copies the
-     flight makes (must be none), from torch.profiler; and each route's
-     device time per frame of the default scene's flight.
+     flight makes (must be none), from torch.profiler; each route's device
+     time per frame of the default scene's flight; and the same copy check
+     over the 8-rank composites (per-range pipelines and merges).
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -68,11 +88,20 @@ MISMATCH_BOUND = 5e-4      # test_pallas_matches_xla's bound, tol 1
 DEPTH_RTOL = 1e-4
 KERNELS = ("raster_flat_nearest", "raster_segmented_nearest",
            "raster_flat_bilinear", "raster_segmented_bilinear")
-# Each kernel's name in a profiler trace (the template instance it launches).
-TRACE_NAMES = {"raster_flat_nearest": "raster_flat_kernel<false>",
-               "raster_flat_bilinear": "raster_flat_kernel<true>",
-               "raster_segmented_nearest": "raster_segmented_kernel<false>",
-               "raster_segmented_bilinear": "raster_segmented_kernel<true>"}
+# The kernels' tracking forms (the same wrappers with track_ids=True,
+# counted in .launches_ids).
+FORMS = KERNELS + tuple(f"{k}_ids" for k in KERNELS)
+# Each form's name in a profiler trace (the template instance it launches).
+TRACE_NAMES = {f"raster_{route}_{sampling}{ids}":
+               f"raster_{route}_kernel<{str(sampling == 'bilinear').lower()}, "
+               f"{str(bool(ids)).lower()}>"
+               for route in ("flat", "segmented")
+               for sampling in ("nearest", "bilinear") for ids in ("", "_ids")}
+GID_BASE = 500             # tracking checks: gids 2 * GID_BASE + slot
+SCENE_RANKS = (2, 4, 8)    # the emulated triangle-sharded composites
+RANGE_RANKS = (1, 2, 4, 8)
+BANDS = (2, 4, 8)
+GRID = (2, 4)              # render_batch_sharded's (frame, fb) grid
 
 # Published NVIDIA H100 SXM peaks (data sheet; at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -90,6 +119,20 @@ TABLE_WORDS = 43 + 7       # the f32 and i32 table rows of one slot
 
 class SmokeFailure(Exception):
     pass
+
+
+def reset_launches(raster) -> None:
+    for k in KERNELS:
+        getattr(raster, k).launches = 0
+        getattr(raster, k).launches_ids = 0
+
+
+def read_launches(raster) -> dict:
+    """Each form's launch count: a kernel's wrapper counts its plain launches
+    in .launches and its tracking ones in .launches_ids."""
+    out = {k: getattr(raster, k).launches for k in KERNELS}
+    out.update({f"{k}_ids": getattr(raster, k).launches_ids for k in KERNELS})
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -306,7 +349,25 @@ def segmented_bound(raster, binned, trf, tri, textures, width, height,
     return {**out, "entries": entries, "broadband_slots": wide}
 
 
-def run() -> dict:
+def load_parent_raster(parent: str):
+    """``ops.raster`` of the port in another checkout (the parent commit's),
+    imported as package ``s3d_parent``: its kernels build from its own
+    csrc/ into its own _build/."""
+    import importlib
+    import importlib.util
+    import os
+
+    pkg = os.path.join(os.path.abspath(parent), "swift3drenderer_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "s3d_parent", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["s3d_parent"] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module("s3d_parent.ops.raster")
+
+
+def run(parent: str | None = None) -> dict:
     import torch
 
     t_start = time.perf_counter()
@@ -329,8 +390,11 @@ def run() -> dict:
     from swift3drenderer_tpu_torch.config import DEFAULT_CONFIG
     from swift3drenderer_tpu_torch.models import SCENES, default_scene
     from swift3drenderer_tpu_torch.ops import raster
+    from swift3drenderer_tpu_torch.parallel import (
+        Mesh, ShardedRenderer, make_mesh, merge_depth_gid,
+        render_batch_sharded, render_scene_sharded)
     from swift3drenderer_tpu_torch.renderer import (
-        Renderer, build_setup, scene_to_device)
+        Renderer, build_setup, render_range, scene_to_device)
 
     # ---- 2. build ----
     phase("2. build")
@@ -384,9 +448,22 @@ def run() -> dict:
     def kernel_of(route, sampling):
         return f"raster_{route}_{sampling}"
 
+    def binned_for(route, setup, width, height, y_offset=0):
+        """The route's binner outputs, in its kernel's argument order."""
+        if route == "flat":
+            return raster.bin_triangles(
+                setup, width=width, height=height, tile_h=raster.TILE_H,
+                tile_w=raster.TILE_W, y_offset=y_offset)[::-1]
+        return raster.bin_segments(setup, width=width, height=height,
+                                   y_offset=y_offset)
+
+    def gids_for(setup):
+        s = setup["live"].shape[-1]
+        return 2 * GID_BASE + torch.arange(s, dtype=torch.int32, device=dev)
+
     # ---- 3. kernels vs plain versions on the card ----
     phase("3. kernels vs plain versions")
-    errs = {k: {} for k in KERNELS}
+    errs = {k: {} for k in FORMS}
 
     def report(store, key, res, what):
         store[key] = res
@@ -473,9 +550,88 @@ def run() -> dict:
                 pb, db, torch.stack([p for p, _ in singles]),
                 torch.stack([d for _, d in singles]), what), what)
 
+    # Each kernel's tracking form (gids 2 * GID_BASE + slot) against its
+    # plain version, pixels, depth and gids bit for bit, and its pixels and
+    # depth against the kernel's own launch on the same inputs.
+    def hold_ids(route, sampling, setup, width, height, tex, what):
+        name = kernel_of(route, sampling)
+        trf, tri = raster.pack_setup_tables(setup, gids_for(setup))
+        args = (*binned_for(route, setup, width, height), trf, tri, tex)
+        kw = dict(width=width, height=height, background=bg)
+        pk, dk, gk = getattr(raster, name)(*args, track_ids=True, **kw)
+        pp, dp, gp = getattr(raster, f"{name}_plain")(*args, track_ids=True,
+                                                      **kw)
+        pn, dn = getattr(raster, name)(*args, **kw)
+        what = f"{name} tracking vs plain {what}"
+        res = compare(pk, dk, pp, dp, what)
+        check(torch.equal(gk, gp), f"{what}: gid planes differ")
+        compare(pk, dk, pn, dn, f"{what}: tracking vs untracked launch")
+        drawn = dk > 0
+        check(bool((gk[~drawn] == -1).all())
+              and bool((gk[drawn] >= 2 * GID_BASE).all()),
+              f"{what}: gids out of range")
+        report(errs[f"{name}_ids"], what, {**res, "gid_equal": True,
+                                           "tracking_equals_untracked": True},
+               what)
+
+    width, height = RESOLUTIONS[0]
+    ids_cases = [("flat", s, "default", poses[0]) for s in ("nearest", "bilinear")]
+    ids_cases += [("segmented", s, n, poses[0]) for n in ("stress840", "stress100k")
+                  for s in ("nearest", "bilinear")]
+    ids_cases += [("flat", "bilinear", "icosahedron", poses[0])]
+    ids_cases += [(route, s, n, np.stack(poses[:4])) for route, n in (
+        ("flat", "default"), ("segmented", "stress840"))
+        for s in ("nearest", "bilinear")]
+    for route, sampling, name, m in ids_cases:
+        setup = setup_of(m, width, height, arrays[name])
+        hold_ids(route, sampling, setup, width, height,
+                 arrays[name]["textures"],
+                 f"{name} {width}x{height} B={m.shape[0] if m.ndim == 3 else 1}")
+
+    # Bands: each frame cut into 2, 4 and 8 bands (rows [y0, y1), y0 > 0 for
+    # all but the first), each band binned and launched with y_offset = y0,
+    # stitched: the full frame, bit for bit, for all four kernels.
+    bands = []
+    for route, name in (("flat", "default"), ("segmented", "stress840")):
+        setup = setup_of(poses[0], width, height, arrays[name])
+        trf, tri = raster.pack_setup_tables(setup)
+        tex = arrays[name]["textures"]
+        for sampling in ("nearest", "bilinear"):
+            kernel = getattr(raster, kernel_of(route, sampling))
+            full = kernel(*binned_for(route, setup, width, height), trf, tri,
+                          tex, width=width, height=height, background=bg)
+            for n in BANDS:
+                edges = [height * i // n for i in range(n + 1)]
+                parts = [kernel(*binned_for(route, setup, width, y1 - y0, y0),
+                                trf, tri, tex, width=width, height=y1 - y0,
+                                background=bg, y_offset=y0)
+                         for y0, y1 in zip(edges, edges[1:])]
+                what = (f"{kernel_of(route, sampling)} {name} {width}x{height}"
+                        f" in {n} bands, stitched, vs the full frame")
+                res = compare(torch.cat([p for p, _ in parts]),
+                              torch.cat([d for _, d in parts]), *full, what)
+                bands.append({"kernel": kernel_of(route, sampling),
+                              "scene": name, "bands": n,
+                              "bit_equal": res["bit_equal"]})
+                print(f"{what}: {json.dumps(res)}", flush=True)
+
     # ---- 4. the main paths ----
     phase("4. main paths")
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in FORMS}
+
+    def counted(name, fn, want):
+        """``fn()`` with every form's launch count set to 0 just before and
+        read just after: it must equal ``want`` ({form: launches})."""
+        reset_launches(raster)
+        out = fn()
+        torch.cuda.synchronize()
+        got = read_launches(raster)
+        print(f"main path {name}: launches {json.dumps(got)}", flush=True)
+        check(got == {k: want.get(k, 0) for k in FORMS},
+              f"{name}: launches {got}, want {want}")
+        for k in FORMS:
+            launches[k] += got[k]
+        return out
 
     def drive(name, renderer, runs, want, batch=0, min_drawn=0.2):
         """Render ``runs`` ((width, height), poses): frame by frame, or in
@@ -483,8 +639,7 @@ def run() -> dict:
         counts set to 0 just before; check the counts just after against
         ``want`` ({kernel: launches per call}), each frame, and (batches)
         each frame against its single-frame render."""
-        for k in KERNELS:
-            getattr(raster, k).launches = 0
+        reset_launches(raster)
         if batch:
             calls = [((w, h), ms[i:i + batch]) for (w, h), ms in runs
                      for i in range(0, len(ms), batch)]
@@ -497,13 +652,13 @@ def run() -> dict:
             frames = [(size, renderer.render_device(ms[0], *size))
                       for size, ms in calls]
         torch.cuda.synchronize()
-        got = {k: getattr(raster, k).launches for k in KERNELS}
+        got = read_launches(raster)
         n = len(calls)
         print(f"main path {name}: {len(frames)} frames in {n} calls, "
               f"launches {json.dumps(got)}", flush=True)
-        check(got == {k: want.get(k, 0) * n for k in KERNELS},
+        check(got == {k: want.get(k, 0) * n for k in FORMS},
               f"{name}: launches {got} for {n} calls, want {want} per call")
-        for k in KERNELS:
+        for k in FORMS:
             launches[k] += got[k]
         for (w, h), (pix, depth) in frames:
             check(tuple(pix.shape) == (h, w) and pix.dtype == torch.int32,
@@ -572,6 +727,106 @@ def run() -> dict:
                     f"B=3 {SMALL[0]}x{SMALL[1]}")
             print(f"{what}: {json.dumps(compare(pg, dg, pc, dc, what))}",
                   flush=True)
+
+    # The multi-device paths. One card holds one NCCL rank: the NCCL group
+    # here has one rank (render_scene_sharded, ShardedRenderer), and the
+    # N-rank composites run as N per-range pipelines in turn, each the
+    # device work of one rank, merged as the butterfly merges them.
+    composites = {"default": (arrays["default"], cfg),
+                  "stress840": (arrays["stress840"], cfg),
+                  "stress100k": (arrays["stress100k"], cfg),
+                  "icosahedron bilinear": (arrays["icosahedron"], bilinear),
+                  "stress840 bilinear": (arrays["stress840"], bilinear)}
+
+    def rank_range(name, n, r):
+        """Rank r's (lo, count) of n, as render_scene_sharded cuts them."""
+        local = -(-composites[name][0]["vert_c"].shape[0] // n)
+        return r * local, local
+
+    def composite(name, m, n, width, height):
+        """The n-rank triangle-sharded frame on one card: (pix, 1/z, gid)."""
+        arr, config = composites[name]
+        acc = None
+        for r in range(n):
+            lo, count = rank_range(name, n, r)
+            out = render_range(arr, m, lo=lo, count=count, width=width,
+                               height=height, config=config)
+            acc = out if acc is None else merge_depth_gid(*acc, *out)
+        return acc
+
+    width, height = RESOLUTIONS[0]
+    m0 = torch.as_tensor(poses[0], device=dev)
+    sharded = []
+    for name, form in (("default", "raster_flat_nearest_ids"),
+                       ("stress840", "raster_segmented_nearest_ids"),
+                       ("stress100k", "raster_segmented_nearest_ids"),
+                       ("icosahedron bilinear", "raster_flat_bilinear_ids"),
+                       ("stress840 bilinear", "raster_segmented_bilinear_ids")):
+        want_p, want_d = renderers[name].render_device(poses[0], width, height)
+        for n in SCENE_RANKS:
+            pix, depth, gid = counted(
+                f"{name} {n}-rank composite {width}x{height}",
+                lambda: composite(name, m0, n, width, height), {form: n})
+            compare(pix, depth, want_p, want_d,
+                    f"{name} {n}-rank composite vs single render")
+            check(bool((gid[depth == 0] == raster.NO_GID).all()),
+                  f"{name} {n}-rank composite: gid where nothing won")
+            sharded.append({"scene": name, "ranks": n, "bit_equal": True})
+        print(f"  {name}: the {SCENE_RANKS}-rank composites bit-equal to the "
+              f"single render", flush=True)
+
+    # render_batch_sharded's 2 x 4 grid as its eight rank blocks (frames
+    # split in two, rows in four bands; a rank's block needs no collective).
+    ms4 = torch.as_tensor(np.stack(poses[:4]), device=dev)
+    for name, form in (("default", "raster_flat_nearest"),
+                       ("stress840", "raster_segmented_nearest")):
+        want_p, want_d = renderers[name].render_batch(np.stack(poses[:4]),
+                                                      width, height)
+        blocks = counted(
+            f"{name} render_batch_sharded {GRID[0]}x{GRID[1]} grid blocks",
+            lambda: [render_batch_sharded(
+                arrays[name], ms4, width=width, height=height,
+                mesh=Mesh(*GRID, r, dev, None, None, None))
+                for r in range(GRID[0] * GRID[1])],
+            {form: GRID[0] * GRID[1]})
+        rows = [(torch.cat([p for p, _ in blocks[f * GRID[1]:(f + 1) * GRID[1]]],
+                           dim=1),
+                 torch.cat([d for _, d in blocks[f * GRID[1]:(f + 1) * GRID[1]]],
+                           dim=1)) for f in range(GRID[0])]
+        compare(torch.cat([p for p, _ in rows]), torch.cat([d for _, d in rows]),
+                want_p, want_d, f"{name} render_batch_sharded grid vs render_batch")
+        print(f"  {name}: the {GRID[0]}x{GRID[1]} grid's blocks stitch to "
+              f"render_batch, bit for bit", flush=True)
+
+    # A real NCCL process group of one rank (rank 0, an in-process store).
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        for name, form in (("default", "raster_flat_nearest_ids"),
+                           ("stress840", "raster_segmented_nearest_ids")):
+            pix, depth = counted(
+                f"{name} render_scene_sharded, NCCL world of 1",
+                lambda: render_scene_sharded(arrays[name], m0, width=width,
+                                             height=height, mesh=mesh),
+                {form: 1})
+            compare(pix, depth, *renderers[name].render_device(
+                poses[0], width, height),
+                f"{name} render_scene_sharded (NCCL, 1 rank) vs render_device")
+        sr = ShardedRenderer(scenes["default"], mesh=mesh, device="cuda")
+        pix, depth = counted(
+            "default ShardedRenderer.render_batch, NCCL 1 x 1 mesh",
+            lambda: sr.render_batch(np.stack(poses[:4]), width, height),
+            {"raster_flat_nearest": 1})
+        compare(pix, depth, *renderers["default"].render_batch(
+            np.stack(poses[:4]), width, height),
+            "ShardedRenderer.render_batch (NCCL, 1 x 1) vs render_batch")
+        print("  NCCL: render_scene_sharded and ShardedRenderer.render_batch "
+              "bit-equal to the single-card renders", flush=True)
+    finally:
+        dist.destroy_process_group()
 
     # ---- 5. timings ----
     phase("5. timings")
@@ -771,6 +1026,97 @@ def run() -> dict:
             print(f"batch sweep default {width}x{height} B={b}: "
                   f"{json.dumps(res)}", flush=True)
 
+    # The tracking forms against their kernels, L2 cold, at each kernel's
+    # main shape (pose 0, 1920x1080) in turns untracked, tracked, tracked,
+    # untracked; the tracking plain versions; the bound is the kernel's plus
+    # the gid plane's 4 bytes per pixel.
+    width, height = RESOLUTIONS[0]
+    main_shapes = (("default", "flat", "nearest"),
+                   ("stress840", "segmented", "nearest"),
+                   ("icosahedron bilinear", "flat", "bilinear"),
+                   ("stress840 bilinear", "segmented", "bilinear"))
+    ids_rows = {}
+    for name, route, sampling in main_shapes:
+        kernel = kernel_of(route, sampling)
+        arr = composites[name][0]
+        setup = setup_of(poses[0], width, height, arr)
+        trf, tri = raster.pack_setup_tables(setup, gids_for(setup))
+        args = (*binned_for(route, setup, width, height), trf, tri,
+                arr["textures"])
+        kw = dict(width=width, height=height, background=bg)
+        launch = getattr(raster, kernel)
+        spans = {False: [], True: []}
+        for track in (False, True, True, False):
+            spans[track].append(time_cold_ms(
+                torch, lambda: launch(*args, track_ids=track, **kw), reps=25))
+        row = next(r for r in table if r["kernel"] == kernel
+                   and r["scene"] == name and r["at"] == f"{width}x{height}")
+        ids_rows[kernel] = {
+            "scene": name, "at": f"{width}x{height}",
+            "ms": statistics.median(spans[True]),
+            "ms_untracked": statistics.median(spans[False]),
+            "plain_ms": time_ms(torch, lambda: getattr(
+                raster, f"{kernel}_plain")(*args, track_ids=True, **kw), 2,
+                warmup=1),
+            **bound_of(row["bytes"] + 4 * width * height, row["flops"])}
+        print(f"timing {kernel} tracking {name} {width}x{height}: "
+              f"{json.dumps(ids_rows[kernel])}", flush=True)
+
+    # The per-range pipeline (render_range: one rank's device work in an
+    # N-card triangle-sharded frame) for each rank at N = 1, 2, 4, 8, and
+    # merge_depth_gid, at 1920x1080.
+    range_ms = []
+    for name in ("default", "stress840", "stress100k"):
+        arr, config = composites[name]
+        for n in RANGE_RANKS:
+            per_rank = []
+            for r in range(n):
+                lo, count = rank_range(name, n, r)
+                per_rank.append(time_ms(torch, lambda: render_range(
+                    arr, m0, lo=lo, count=count, width=width, height=height,
+                    config=config), 5, warmup=2, windows=3))
+            res = {"scene": name, "at": f"{width}x{height}", "ranks": n,
+                   "rank_ms": per_rank, "max_rank_ms": max(per_rank),
+                   "mean_rank_ms": statistics.mean(per_rank)}
+            range_ms.append(res)
+            print(f"per-range pipeline: {json.dumps(res)}", flush=True)
+    halves = [render_range(arrays["stress840"], m0, lo=lo, count=count,
+                           width=width, height=height)
+              for lo, count in (rank_range("stress840", 2, r) for r in range(2))]
+    merge_ms = time_ms(torch, lambda: merge_depth_gid(*halves[0], *halves[1]),
+                       20)
+    print(f"merge_depth_gid {width}x{height}: {merge_ms} ms", flush=True)
+
+    # With --parent DIR: the four kernels at y0 = 0 against the parent
+    # tree's, on the same inputs, L2 cold, in turns parent, this, this,
+    # parent (the same card in one call).
+    ab = []
+    if parent:
+        praster = load_parent_raster(parent)
+        for name, route, sampling in main_shapes:
+            kernel = kernel_of(route, sampling)
+            arr = composites[name][0]
+            setup = setup_of(poses[0], width, height, arr)
+            trf, tri = raster.pack_setup_tables(setup)
+            args = (*binned_for(route, setup, width, height), trf, tri,
+                    arr["textures"])
+            kw = dict(width=width, height=height, background=bg)
+            fns = {"parent": getattr(praster, kernel),
+                   "this": getattr(raster, kernel)}
+            compare(*fns["this"](*args, **kw), *fns["parent"](*args, **kw),
+                    f"{kernel} {name}: this tree vs the parent's")
+            spans = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                spans[who].append(time_cold_ms(
+                    torch, lambda: fns[who](*args, **kw), reps=50))
+            res = {"kernel": kernel, "scene": name, "at": f"{width}x{height}",
+                   "parent_ms": statistics.median(spans["parent"]),
+                   "this_ms": statistics.median(spans["this"]),
+                   "spans": spans}
+            res["ratio"] = res["this_ms"] / res["parent_ms"]
+            ab.append(res)
+            print(f"A/B vs parent: {json.dumps(res)}", flush=True)
+
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
     phase("6. profiles")
@@ -836,6 +1182,28 @@ def run() -> dict:
         print(f"route profile default {width}x{height}: {json.dumps(res)}",
               flush=True)
 
+    # The 8-rank composites (per-range pipelines and merges): no copy to the
+    # host; the card's time per rank and each tracking kernel's per launch
+    # there.
+    width, height = RESOLUTIONS[0]
+    for name, route in (("default", "flat"), ("stress840", "segmented")):
+        n = SCENE_RANKS[-1]
+        prof = device_busy(torch, lambda: composite(name, m0, n, width, height))
+        kernel = kernel_of(route, "nearest")
+        us = sum(v for k, v in prof["per_kernel"].items()
+                 if TRACE_NAMES[f"{kernel}_ids"] in k)
+        ids_rows[kernel]["ms_in_8_rank_composite"] = (
+            us / n / 1e3 if us else "not measured")
+        device_ms = sum(prof["per_kernel"].values()) / n / 1e3
+        print(f"profile {name} {n}-rank composite {width}x{height}: device busy "
+              f"share {prof['busy']}, {prof['launched'] / n} kernels and "
+              f"{device_ms} ms of device time per rank, {kernel}_ids "
+              f"{ids_rows[kernel]['ms_in_8_rank_composite']} ms per launch, "
+              f"device-to-host copies {prof['d2h']}, scalar reads "
+              f"{prof['scalar_reads']}", flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"{name} {n}-rank composite: copied to the host")
+
     def kernel_row(name, replaces, main_scene):
         rows_k = [r for r in table if r["kernel"] == name]
         main_at = "{} {}x{}".format(main_scene, *RESOLUTIONS[0])
@@ -860,6 +1228,8 @@ def run() -> dict:
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": None,
+            "parent_ms_same_call": next((x["parent_ms"] for x in ab
+                                         if x["kernel"] == name), "not measured"),
             "shapes": [{k: r.get(k) for k in (
                 "scene", "at", "batch", "ms", "ms_in_flight", "plain_ms",
                 "bound_ms", "bound_by", "tile_bound_ms", "frame_ms_median",
@@ -868,6 +1238,34 @@ def run() -> dict:
                 for r in rows_k],
         }
 
+    def ids_row(kernel, replaces):
+        r = ids_rows[kernel]
+        e = list(errs[f"{kernel}_ids"].values())
+        return {
+            "name": f"{kernel}_ids",
+            "route": "cuda",
+            "source": "swift3drenderer_tpu_torch/csrc/raster.cu",
+            "replaces": replaces,
+            "launches": launches[f"{kernel}_ids"],
+            "max_abs_err": max(x["max_channel_err"] for x in e),
+            "depth_max_abs_err": max(x["depth_max_abs_err"] for x in e),
+            "pixel_mismatch": max(x["pixel_mismatch"] for x in e),
+            "frames_compared": len(e),
+            "tolerance": "bit-equal pixels, depth and gids (checked); bounds "
+                         f"pixel mismatch < {MISMATCH_BOUND} at tol 1, depth "
+                         f"rtol {DEPTH_RTOL}",
+            "at": f"{r['scene']} {r['at']}",
+            "ms": r["ms"],
+            "ms_untracked_same_call": r["ms_untracked"],
+            "ms_in_8_rank_composite": r.get("ms_in_8_rank_composite",
+                                            "not measured"),
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+        }
+
+    ids_source = "swift3drenderer_tpu/ops/raster_pallas.py:398"
     kernels_line = [
         kernel_row("raster_flat_nearest",
                    "swift3drenderer_tpu/ops/raster_pallas.py:249", "default"),
@@ -879,7 +1277,10 @@ def run() -> dict:
         kernel_row("raster_segmented_bilinear",
                    "swift3drenderer_tpu/ops/raster_pallas.py:1132",
                    "stress840 bilinear"),
-    ]
+    ] + [ids_row(k, ids_source) for k in KERNELS]
+    print(json.dumps({"bands": bands, "composites": sharded,
+                      "per_range_ms": range_ms, "merge_ms": merge_ms,
+                      "ab_parent": ab or "not measured"}))
     phase("done")
     print(card)
     print(json.dumps({"kernels": kernels_line}))
@@ -889,8 +1290,15 @@ def run() -> dict:
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    parent = None
+    if args[:1] == ["--parent"] and len(args) == 2:
+        parent = args[1]
+    elif args:
+        print("usage: python3 chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     try:
-        result = run()
+        result = run(parent)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

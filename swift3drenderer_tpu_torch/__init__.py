@@ -5,10 +5,13 @@ The package imports torch and numpy only: the numpy modules it shares with the
 JAX package (config, camera, scene container and factories, textures) are kept
 here as copies. Entry points default to ``device="cuda"``; pass
 ``device="cpu"`` to run the plain PyTorch version of every kernel.
+``ShardedRenderer`` and the rest of ``parallel`` render over
+torch.distributed ranks.
 """
 
 from .camera import Camera, Input
 from .config import DEFAULT_CONFIG, RenderConfig
+from .parallel import ShardedRenderer
 from .renderer import Renderer
 from .utils.databin import Scene, dump_scene, load_scene
 
@@ -19,6 +22,7 @@ __all__ = [
     "RenderConfig",
     "Renderer",
     "Scene",
+    "ShardedRenderer",
     "dump_scene",
     "load_scene",
 ]

@@ -15,7 +15,12 @@
 // (tex_coord_planes :618-634, fetch_tex/block_body :1132-1280, the float
 // channel merge :1346-1360). The grid's third axis is the camera batch, as
 // the TPU grid's first (B, nty, ntx; per-frame tables by block index,
-// :1548-1557, :1595-1613).
+// :1548-1557, :1595-1613). Each kernel has a tracking form (kTrackIds), the
+// TPU kernel's track_ids (:258-260, :297-304, :398-399, :427-428, :448-476,
+// :497-498): a third output plane with each winner's row kGID value, -1 where
+// nothing covers. Every kernel takes the band's first framebuffer row y0 (the
+// TPU kernel's y0_ref / y_top): it covers rows [y0, y0 + height) of a
+// full-frame setup table into a (height, width) output.
 //
 // Design. One thread block per kTileW x kTileH pixel tile and frame
 // (blockIdx.z = frame; TILE_W x TILE_H in ops/raster.py, which bins for it),
@@ -43,13 +48,17 @@
 // flat kernel walks ascending slots with a strict '>', so the earlier slot
 // keeps a depth tie (render.swift:323-325); the segmented kernel's two lists
 // interleave in slot order, so it states the same rule without the order:
-// the greater 1/z wins, and at equal 1/z > 0 the smaller slot.
+// the greater 1/z wins, and at equal 1/z > 0 the smaller slot. The TPU
+// kernel's segmented tracking form breaks that tie on the smaller gid
+// instead; the two agree because every caller's gids ascend with slot order
+// among a frame's live slots (ops/raster.py checks it in the plain version).
 //
-// Bound. Per pixel a kernel writes 8 bytes, reads at most one atlas word (four
-// taps for bilinear, mostly shared with neighbouring pixels) and does ~17
-// flops for each slot whose bbox holds the pixel, plus ~100 (bilinear ~135)
-// for its winner's shading; at the main path's shapes the bytes bound
-// (chip_smoke.py computes it from the run's own tables and texel fetches).
+// Bound. Per pixel a kernel writes 8 bytes (12 tracking), reads at most one
+// atlas word (four taps for bilinear, mostly shared with neighbouring
+// pixels) and does ~17 flops for each slot whose bbox holds the pixel, plus
+// ~100 (bilinear ~135) for its winner's shading; at the main path's shapes
+// the bytes bound (chip_smoke.py computes it from the run's own tables and
+// texel fetches).
 // These first versions favour being right: tables are read from L1/L2 on
 // every slot, and nothing is staged ahead.
 //
@@ -77,7 +86,7 @@ constexpr int kW00 = 0, kDX = 3, kDY = 6, kRVZ = 9, kCVP = 12, kNP = 21,
               kATTRP = 30, kTPP = 39, kDZV = 41;
 constexpr int kF32Rows = 43, kI32Rows = 7;
 constexpr int kXMIN = 0, kXMAX = 1, kYMIN = 2, kYMAX = 3, kTEXBASE = 4,
-              kISTEX = 5;
+              kISTEX = 5, kGID = 6;
 constexpr int kAtlasEdge = 512;
 // The pixel tile; ops/raster.py's TILE_W, TILE_H bin for the same one.
 constexpr int kTileW = 32, kTileH = 8, kThreads = kTileW * kTileH;
@@ -165,19 +174,22 @@ __device__ __forceinline__ float slot_ooz(const float* __restrict__ trf,
   return cover ? ooz : 0.0f;
 }
 
-// Phases 2 and 3 for one pixel, and its stores: depth, then the background
-// where nothing won, the winner's flat colour pack, or its nearest texel (or
-// bilinear blend of four) times the shade. f and i are the winner's table
-// columns (slot_ooz).
-template <bool kBilinear>
+// Phases 2 and 3 for one pixel, and its stores: depth (and, tracking, the
+// winner's gid or -1), then the background where nothing won, the winner's
+// flat colour pack, or its nearest texel (or bilinear blend of four) times
+// the shade. f and i are the winner's table columns (slot_ooz); py is the
+// framebuffer row, row = py - y0 the output row.
+template <bool kBilinear, bool kTrackIds>
 __device__ __forceinline__ void shade_and_store(
     const float* __restrict__ trf, const int* __restrict__ tri,
     const int* __restrict__ atlas, int num_textures, int S, float best,
-    int win, int f, int i, int px, int py, int width, int height,
-    int background, int* __restrict__ pix, float* __restrict__ depth) {
-  if (px >= width || py >= height) return;
-  const size_t o = static_cast<size_t>(py) * width + px;
+    int win, int f, int i, int px, int py, int row, int width, int height,
+    int background, int* __restrict__ pix, float* __restrict__ depth,
+    int* __restrict__ gid) {
+  if (px >= width || row >= height) return;
+  const size_t o = static_cast<size_t>(row) * width + px;
   depth[o] = best;
+  if constexpr (kTrackIds) gid[o] = win < 0 ? -1 : tri[kGID * S + i];
   if (win < 0) {
     pix[o] = background;
     return;
@@ -186,13 +198,13 @@ __device__ __forceinline__ void shade_and_store(
   const float pyf = static_cast<float>(py);
 
   // ---- phase 2: shade the winner (render.swift:326-331) ----
-  auto T = [&](int row) { return trf[row * S + f]; };
+  auto T = [&](int r) { return trf[r * S + f]; };
   const float inv = 1.0f / best;
   const float t0 = (T(kW00 + 0) + pxf * T(kDX + 0) + pyf * T(kDY + 0)) * inv;
   const float t1 = (T(kW00 + 1) + pxf * T(kDX + 1) + pyf * T(kDY + 1)) * inv;
   const float t2 = (T(kW00 + 2) + pxf * T(kDX + 2) + pyf * T(kDY + 2)) * inv;
-  auto interp = [&](int row) {
-    return T(row) * t0 + T(row + 3) * t1 + T(row + 6) * t2;
+  auto interp = [&](int k) {
+    return T(k) * t0 + T(k + 3) * t1 + T(k + 6) * t2;
   };
   // Halfway-vector headlight.
   float vx = interp(kCVP + 0), vy = interp(kCVP + 1), vz = interp(kCVP + 2);
@@ -256,16 +268,18 @@ __device__ __forceinline__ void shade_and_store(
   const size_t plane_ = static_cast<size_t>(width) * height;      \
   pix += blockIdx.z * plane_;                                      \
   depth += blockIdx.z * plane_;                                    \
+  if constexpr (kTrackIds) gid += blockIdx.z * plane_;             \
   const int f32_frame = blockIdx.z * kF32Rows * S;                 \
   const int i32_frame = blockIdx.z * kI32Rows * S
 
-template <bool kBilinear>
+template <bool kBilinear, bool kTrackIds>
 __global__ void __launch_bounds__(kThreads)
 raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
                    const float* __restrict__ trf, const int* __restrict__ tri,
                    const int* __restrict__ atlas, int num_textures,
-                   int* __restrict__ pix, float* __restrict__ depth, int S,
-                   int width, int height, int background) {
+                   int* __restrict__ pix, float* __restrict__ depth,
+                   int* __restrict__ gid, int S, int width, int height, int y0,
+                   int background) {
   __shared__ int list[kThreads];
   S3D_FRAME_OFFSETS();
   const int ntiles = gridDim.x * gridDim.y;
@@ -273,7 +287,8 @@ raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const size_t frame_tile = static_cast<size_t>(blockIdx.z) * ntiles + tile;
   const int px = blockIdx.x * kTileW + threadIdx.x;
-  const int py = blockIdx.y * kTileH + threadIdx.y;
+  const int row = blockIdx.y * kTileH + threadIdx.y;
+  const int py = y0 + row;
   const float pxf = static_cast<float>(px);
   const float pyf = static_cast<float>(py);
 
@@ -297,12 +312,12 @@ raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
       }
     }
   }
-  shade_and_store<kBilinear>(trf, tri, atlas, num_textures, S, best, win,
-                             f32_frame + win, i32_frame + win, px, py, width,
-                             height, background, pix, depth);
+  shade_and_store<kBilinear, kTrackIds>(
+      trf, tri, atlas, num_textures, S, best, win, f32_frame + win,
+      i32_frame + win, px, py, row, width, height, background, pix, depth, gid);
 }
 
-template <bool kBilinear>
+template <bool kBilinear, bool kTrackIds>
 __global__ void __launch_bounds__(kThreads)
 raster_segmented_kernel(const int* __restrict__ ids,
                         const int* __restrict__ starts,
@@ -313,8 +328,8 @@ raster_segmented_kernel(const int* __restrict__ ids,
                         const int* __restrict__ tri,
                         const int* __restrict__ atlas, int num_textures,
                         int* __restrict__ pix, float* __restrict__ depth,
-                        int S, int entries, int width, int height,
-                        int background) {
+                        int* __restrict__ gid, int S, int entries, int width,
+                        int height, int y0, int background) {
   constexpr int kWarps = kThreads / 32;
   __shared__ int list[kThreads];
   __shared__ int warp_kept[kWarps];
@@ -327,9 +342,11 @@ raster_segmented_kernel(const int* __restrict__ ids,
   const int warp = lane >> 5;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const size_t frame_tile = frame * ntiles + tile;
-  const int x0 = blockIdx.x * kTileW, y0 = blockIdx.y * kTileH;
-  const int px = x0 + threadIdx.x;
-  const int py = y0 + threadIdx.y;
+  // The tile's first pixel column and framebuffer row.
+  const int tx0 = blockIdx.x * kTileW, ty0 = y0 + blockIdx.y * kTileH;
+  const int px = tx0 + threadIdx.x;
+  const int row = blockIdx.y * kTileH + threadIdx.y;
+  const int py = y0 + row;
   const float pxf = static_cast<float>(px);
   const float pyf = static_cast<float>(py);
   float best = 0.0f;
@@ -352,8 +369,8 @@ raster_segmented_kernel(const int* __restrict__ ids,
     if (base + lane < nb) {
       s = bb[base + lane];
       const int c = i32_frame + s;
-      keep = tri[kXMIN * S + c] < x0 + kTileW && tri[kXMAX * S + c] >= x0
-             && tri[kYMIN * S + c] < y0 + kTileH && tri[kYMAX * S + c] >= y0;
+      keep = tri[kXMIN * S + c] < tx0 + kTileW && tri[kXMAX * S + c] >= tx0
+             && tri[kYMIN * S + c] < ty0 + kTileH && tri[kYMAX * S + c] >= ty0;
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, keep);
     __syncthreads();  // the previous chunk's list is consumed
@@ -379,9 +396,9 @@ raster_segmented_kernel(const int* __restrict__ ids,
     __syncthreads();
     for (int j = 0; j < m; ++j) visit(list[j]);
   }
-  shade_and_store<kBilinear>(trf, tri, atlas, num_textures, S, best, win,
-                             f32_frame + win, i32_frame + win, px, py, width,
-                             height, background, pix, depth);
+  shade_and_store<kBilinear, kTrackIds>(
+      trf, tri, atlas, num_textures, S, best, win, f32_frame + win,
+      i32_frame + win, px, py, row, width, height, background, pix, depth, gid);
 }
 
 bool bad_frame(int frames, int width, int height, int S) {
@@ -393,92 +410,135 @@ dim3 tile_grid(int frames, int width, int height) {
               frames);
 }
 
-template <bool kBilinear>
-int launch_flat(const void* counts, const void* ids, const void* trf,
+template <bool kBilinear, bool kTrackIds>
+void start_flat(const void* counts, const void* ids, const void* trf,
                 const void* tri, const void* atlas, void* pix, void* depth,
-                int frames, int S, int num_textures, int width, int height,
-                int background, void* stream) {
-  if (bad_frame(frames, width, height, S)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  raster_flat_kernel<kBilinear>
+                void* gid, int frames, int S, int num_textures, int width,
+                int height, int y0, int background, void* stream) {
+  raster_flat_kernel<kBilinear, kTrackIds>
       <<<tile_grid(frames, width, height), dim3(kTileW, kTileH), 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(counts), static_cast<const int*>(ids),
           static_cast<const float*>(trf), static_cast<const int*>(tri),
           static_cast<const int*>(atlas), num_textures, static_cast<int*>(pix),
-          static_cast<float*>(depth), S, width, height, background);
+          static_cast<float*>(depth), static_cast<int*>(gid), S, width, height,
+          y0, background);
+}
+
+// A null gid selects the kernel without the gid plane.
+template <bool kBilinear>
+int launch_flat(const void* counts, const void* ids, const void* trf,
+                const void* tri, const void* atlas, void* pix, void* depth,
+                void* gid, int frames, int S, int num_textures, int width,
+                int height, int y0, int background, void* stream) {
+  if (bad_frame(frames, width, height, S) || y0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (gid) {
+    start_flat<kBilinear, true>(counts, ids, trf, tri, atlas, pix, depth, gid,
+                                frames, S, num_textures, width, height, y0,
+                                background, stream);
+  } else {
+    start_flat<kBilinear, false>(counts, ids, trf, tri, atlas, pix, depth,
+                                 nullptr, frames, S, num_textures, width,
+                                 height, y0, background, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBilinear>
-int launch_segmented(const void* ids, const void* starts, const void* counts,
+template <bool kBilinear, bool kTrackIds>
+void start_segmented(const void* ids, const void* starts, const void* counts,
                      const void* bb, const void* bb_count, const void* trf,
                      const void* tri, const void* atlas, void* pix,
-                     void* depth, int frames, int S, int entries,
-                     int num_textures, int width, int height, int background,
-                     void* stream) {
-  if (bad_frame(frames, width, height, S) || entries < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  raster_segmented_kernel<kBilinear>
+                     void* depth, void* gid, int frames, int S, int entries,
+                     int num_textures, int width, int height, int y0,
+                     int background, void* stream) {
+  raster_segmented_kernel<kBilinear, kTrackIds>
       <<<tile_grid(frames, width, height), dim3(kTileW, kTileH), 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(ids), static_cast<const int*>(starts),
           static_cast<const int*>(counts), static_cast<const int*>(bb),
           static_cast<const int*>(bb_count), static_cast<const float*>(trf),
           static_cast<const int*>(tri), static_cast<const int*>(atlas),
-          num_textures, static_cast<int*>(pix), static_cast<float*>(depth), S,
-          entries, width, height, background);
+          num_textures, static_cast<int*>(pix), static_cast<float*>(depth),
+          static_cast<int*>(gid), S, entries, width, height, y0, background);
+}
+
+template <bool kBilinear>
+int launch_segmented(const void* ids, const void* starts, const void* counts,
+                     const void* bb, const void* bb_count, const void* trf,
+                     const void* tri, const void* atlas, void* pix,
+                     void* depth, void* gid, int frames, int S, int entries,
+                     int num_textures, int width, int height, int y0,
+                     int background, void* stream) {
+  if (bad_frame(frames, width, height, S) || entries < 0 || y0 < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (gid) {
+    start_segmented<kBilinear, true>(ids, starts, counts, bb, bb_count, trf,
+                                     tri, atlas, pix, depth, gid, frames, S,
+                                     entries, num_textures, width, height, y0,
+                                     background, stream);
+  } else {
+    start_segmented<kBilinear, false>(ids, starts, counts, bb, bb_count, trf,
+                                      tri, atlas, pix, depth, nullptr, frames,
+                                      S, entries, num_textures, width, height,
+                                      y0, background, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each entry point launches its kernel on ``stream`` over a
-// ceil(W/kTileW) x ceil(H/kTileH) x frames grid and returns
-// cudaGetLastError() (0 when the launch was accepted). Per-frame inputs and
-// outputs are frame-major: frame b's are at b times one frame's size.
+// ceil(W/kTileW) x ceil(H/kTileH) x frames grid, covering framebuffer rows
+// [y0, y0 + H), and returns cudaGetLastError() (0 when the launch was
+// accepted). Per-frame inputs and outputs are frame-major: frame b's are at b
+// times one frame's size. With a non-null gid the tracking form also writes
+// the winners' gids there; with a null gid it is the kernel without them.
 extern "C" int raster_flat_nearest(const void* counts, const void* ids,
                                    const void* trf, const void* tri,
                                    const void* atlas, void* pix, void* depth,
-                                   int frames, int S, int num_textures,
-                                   int width, int height, int background,
-                                   void* stream) {
-  return launch_flat<false>(counts, ids, trf, tri, atlas, pix, depth, frames,
-                            S, num_textures, width, height, background,
-                            stream);
+                                   void* gid, int frames, int S,
+                                   int num_textures, int width, int height,
+                                   int y0, int background, void* stream) {
+  return launch_flat<false>(counts, ids, trf, tri, atlas, pix, depth, gid,
+                            frames, S, num_textures, width, height, y0,
+                            background, stream);
 }
 
 extern "C" int raster_flat_bilinear(const void* counts, const void* ids,
                                     const void* trf, const void* tri,
                                     const void* atlas, void* pix, void* depth,
-                                    int frames, int S, int num_textures,
-                                    int width, int height, int background,
-                                    void* stream) {
-  return launch_flat<true>(counts, ids, trf, tri, atlas, pix, depth, frames,
-                           S, num_textures, width, height, background, stream);
+                                    void* gid, int frames, int S,
+                                    int num_textures, int width, int height,
+                                    int y0, int background, void* stream) {
+  return launch_flat<true>(counts, ids, trf, tri, atlas, pix, depth, gid,
+                           frames, S, num_textures, width, height, y0,
+                           background, stream);
 }
 
 extern "C" int raster_segmented_nearest(
     const void* ids, const void* starts, const void* counts, const void* bb,
     const void* bb_count, const void* trf, const void* tri, const void* atlas,
-    void* pix, void* depth, int frames, int S, int entries, int num_textures,
-    int width, int height, int background, void* stream) {
+    void* pix, void* depth, void* gid, int frames, int S, int entries,
+    int num_textures, int width, int height, int y0, int background,
+    void* stream) {
   return launch_segmented<false>(ids, starts, counts, bb, bb_count, trf, tri,
-                                 atlas, pix, depth, frames, S, entries,
-                                 num_textures, width, height, background,
+                                 atlas, pix, depth, gid, frames, S, entries,
+                                 num_textures, width, height, y0, background,
                                  stream);
 }
 
 extern "C" int raster_segmented_bilinear(
     const void* ids, const void* starts, const void* counts, const void* bb,
     const void* bb_count, const void* trf, const void* tri, const void* atlas,
-    void* pix, void* depth, int frames, int S, int entries, int num_textures,
-    int width, int height, int background, void* stream) {
+    void* pix, void* depth, void* gid, int frames, int S, int entries,
+    int num_textures, int width, int height, int y0, int background,
+    void* stream) {
   return launch_segmented<true>(ids, starts, counts, bb, bb_count, trf, tri,
-                                atlas, pix, depth, frames, S, entries,
-                                num_textures, width, height, background,
+                                atlas, pix, depth, gid, frames, S, entries,
+                                num_textures, width, height, y0, background,
                                 stream);
 }
 

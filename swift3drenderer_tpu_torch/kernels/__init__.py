@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/raster.cu`` holds the four raster kernels behind a plain C interface (no
-PyTorch headers, so nvcc takes seconds) and is compiled at first use into
+``csrc/raster.cu`` holds the four raster kernels, each with its winner-id
+tracking form, behind a plain C interface (no PyTorch headers, so nvcc takes
+seconds) and is compiled at first use into
 ``swift3drenderer_tpu_torch/_build/raster-<hash>.so`` (listed in .gitignore),
 then loaded with ctypes. The hash covers the source and the flags, so an edit
 rebuilds.

@@ -26,6 +26,18 @@ Winners do not depend on the tiling: a pixel tests every live slot whose bbox
 touches its tile, and the exact bbox test is part of coverage, so any slot left
 out of a tile's list would fail it anyway. The flat plain version therefore
 walks all binned slots over the whole frame.
+
+Bands. ``y_offset`` is the first framebuffer row of a band of ``height`` rows
+(the fb axis of ``parallel.render_batch_sharded``): the setup table stays in
+full-frame rows, the binners clip each slot to the band's tiles and drop the
+slots outside it, and the kernels cover rows [y_offset, y_offset + height)
+into a (height, W) output. ``y_offset=0`` with the frame's own height is the
+whole frame.
+
+Winner ids. With ``track_ids=True`` a kernel also writes each pixel's
+winner's row ``_GID`` value (``pack_setup_tables``' ``gids``), -1 where
+nothing covers: the third output plane of the JAX kernel's ``track_ids`` form,
+the key by which passes and devices merge (``rasterize(gids=...)``).
 """
 
 from __future__ import annotations
@@ -78,12 +90,15 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def pack_setup_tables(setup: Dict[str, torch.Tensor]):
+def pack_setup_tables(setup: Dict[str, torch.Tensor], gids=None):
     """Pack the setup table into (row, slot) arrays: (..., 43, S) f32 and
-    (..., 7, S) i32. Row _GID holds each slot's own index (one pass covers
-    the whole table)."""
+    (..., 7, S) i32. Row _GID holds each slot's global setup index: ``gids``
+    ((S,) or (..., S) int32), or the slot's own index by default (one pass
+    covers the whole table)."""
     live = setup["live"]
     n = live.shape[-1]
+    if gids is None:
+        gids = torch.arange(n, dtype=torch.int32, device=live.device)
 
     def rows(x, k):
         return x.reshape(*live.shape, k).transpose(-1, -2)
@@ -97,42 +112,63 @@ def pack_setup_tables(setup: Dict[str, torch.Tensor]):
         setup["xmin"], setup["xmax"], setup["ymin"], setup["ymax"],
         torch.where(setup["is_tex"], setup["tex"] << 18, -1),
         setup["is_tex"].to(torch.int32),
-        torch.arange(n, dtype=torch.int32, device=live.device).expand(live.shape),
+        torch.as_tensor(gids, dtype=torch.int32,
+                        device=live.device).expand(live.shape),
     ], dim=-2).to(torch.int32).contiguous()               # (..., 7, S)
     return f32, i32
 
 
 def _tile_bbox(setup: Dict[str, torch.Tensor], ntx: int, nty: int,
-               tile_w: int, tile_h: int):
-    """Each slot's bbox in tile coordinates, clamped to the grid:
-    (txmin, txmax, tymin, tymax), (..., S) int32 each."""
+               tile_w: int, tile_h: int, y_offset: int = 0):
+    """Each slot's bbox in the tile coordinates of the band that starts at
+    row ``y_offset``, clamped to its grid: (txmin, txmax, tymin, tymax),
+    (..., S) int32 each."""
     def tiles(v, size, n):
         return torch.clamp(torch.div(v, size, rounding_mode="floor"), 0, n - 1)
 
+    def rows(v):
+        return v - y_offset if y_offset else v
+
     return (tiles(setup["xmin"], tile_w, ntx), tiles(setup["xmax"], tile_w, ntx),
-            tiles(setup["ymin"], tile_h, nty), tiles(setup["ymax"], tile_h, nty))
+            tiles(rows(setup["ymin"]), tile_h, nty),
+            tiles(rows(setup["ymax"]), tile_h, nty))
+
+
+def _live_in_band(setup: Dict[str, torch.Tensor], height: int,
+                  y_offset: int) -> torch.Tensor:
+    """The live slots whose bbox meets rows [y_offset, y_offset + height): a
+    live slot's bbox is clamped to the whole frame, not to a band. It ends
+    at a row >= 0, so a band at row 0 needs no test above it."""
+    live = setup["live"] & (setup["ymin"] < y_offset + height)
+    return live & (setup["ymax"] >= y_offset) if y_offset else live
+
+
+def _check_band(y_offset: int) -> None:
+    if y_offset < 0:
+        raise ValueError(f"y_offset={y_offset}: a band starts at a row >= 0")
 
 
 def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
-                  tile_h: int, tile_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Map each live triangle to the framebuffer tiles its bbox touches.
+                  tile_h: int, tile_w: int, y_offset: int = 0
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Map each live triangle to the tiles of the band [y_offset, y_offset +
+    height) that its bbox touches.
 
     Returns (ids (..., ntiles, S) int32 — touching triangle slots first,
     ascending; counts (..., ntiles, 1) int32). Ascending id order preserves
     the reference's earlier-triangle-wins depth ties.
     """
-    live = setup["live"]
+    live = _live_in_band(setup, height, y_offset)
     dev = live.device
     ntx, nty = _cdiv(width, tile_w), _cdiv(height, tile_h)
-    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, tile_w, tile_h)
+    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, tile_w, tile_h,
+                                            y_offset)
     tx = torch.arange(ntx, dtype=torch.int32, device=dev)
     ty = torch.arange(nty, dtype=torch.int32, device=dev)
     touch_x = (tx >= txmin[..., None]) & (tx <= txmax[..., None])
-    touch_y = (ty >= tymin[..., None]) & (ty <= tymax[..., None])
-    # A live slot's bbox lies inside the frame (triangle_setup clamps it), so
-    # unlike the banded JAX binner no row-band test is needed.
-    touch = ((touch_y[..., :, None] & touch_x[..., None, :])
-             & live[..., None, None])
+    touch_y = ((ty >= tymin[..., None]) & (ty <= tymax[..., None])
+               & live[..., None])
+    touch = touch_y[..., :, None] & touch_x[..., None, :]
     touch = touch.flatten(-2).transpose(-1, -2)             # (..., ntiles, S)
     s = touch.shape[-1]
     # Stable partition (touching slots first, both groups ascending) as a
@@ -145,17 +181,20 @@ def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
 
 
 def segment_keys(setup: Dict[str, torch.Tensor], *, width: int, height: int,
-                 k: int = SEG_K) -> Tuple[torch.Tensor, torch.Tensor]:
+                 k: int = SEG_K, y_offset: int = 0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The unsorted entries of ``bin_segments``: (keys (..., S*K) int32, big
     (..., S) bool). Entry ``slot * K + e`` is the e-th tile, row-major, of
     the slot's tile bbox, keyed by that tile's index, for each live slot
     whose bbox covers at most K tiles; every other entry is keyed ``ntiles``,
     past every tile. ``big`` marks the live slots that cover more than K
     tiles. A key is at most ``ntiles``, so it is bounded by the grid alone,
-    whatever S."""
+    whatever S. The tiles are those of the band [y_offset, y_offset +
+    height); live slots outside it count as dead."""
     ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
-    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, TILE_W, TILE_H)
-    live = setup["live"]
+    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, TILE_W, TILE_H,
+                                            y_offset)
+    live = _live_in_band(setup, height, y_offset)
     # Dead slots may have an empty bbox; clamping keeps the division defined.
     wx = (txmax - txmin + 1).clamp(min=1)
     area = wx * (tymax - tymin + 1)
@@ -168,9 +207,9 @@ def segment_keys(setup: Dict[str, torch.Tensor], *, width: int, height: int,
 
 
 def bin_segments(setup: Dict[str, torch.Tensor], *, width: int, height: int,
-                 k: int = SEG_K):
-    """Segmented binning at TILE_W x TILE_H: the large-scene front-end
-    (``raster_pallas.py::bin_segments``).
+                 k: int = SEG_K, y_offset: int = 0):
+    """Segmented binning at TILE_W x TILE_H over the band [y_offset, y_offset
+    + height): the large-scene front-end (``raster_pallas.py::bin_segments``).
 
     Each live slot whose bbox covers at most K tiles gives one (tile, slot)
     entry per covered tile; one stable sort of the tile keys, slot-major,
@@ -187,7 +226,8 @@ def bin_segments(setup: Dict[str, torch.Tensor], *, width: int, height: int,
     int32: the broadband slots ascending, then the other slots; bb_count
     (..., 1) int32: the broadband list's length).
     """
-    keys, big = segment_keys(setup, width=width, height=height, k=k)
+    keys, big = segment_keys(setup, width=width, height=height, k=k,
+                             y_offset=y_offset)
     dev = keys.device
     lead, s = big.shape[:-1], big.shape[-1]
     keys = keys.reshape(-1, s * k)
@@ -219,15 +259,34 @@ def _binned_slots(counts: torch.Tensor, ids: torch.Tensor) -> list:
     return torch.unique(ids[pos < counts]).tolist()
 
 
+def _check_gid_order(tri: torch.Tensor, slots: torch.Tensor) -> None:
+    """The tracking forms' precondition, on one frame's binned slots
+    (ascending): their row-_GID values ascend too. The kernels keep the
+    smaller slot at a depth tie; the JAX segmented kernel keeps the smaller
+    gid; the two agree exactly when gids ascend with slot order, as every
+    caller's do (2 * (base + triangle) + {0, 1}). Checked here, where a
+    scalar read is allowed; the card's wrappers do not read back."""
+    g = tri[_GID][slots]
+    if g.numel() > 1 and not bool((g[1:] > g[:-1]).all()):
+        raise ValueError("gids must ascend with slot order among a frame's "
+                         "live slots")
+
+
+def _gid_plane(win: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """Each pixel's winner's row-_GID value, -1 where nothing covers."""
+    return torch.where(win >= 0, tri[_GID][win.clamp(min=0).long()], -1)
+
+
 def visibility_plain(counts: torch.Tensor, ids: torch.Tensor,
                      trf: torch.Tensor, tri: torch.Tensor, *, width: int,
-                     height: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of one frame over the whole frame: (best 1/z (H, W) f32,
+                     height: int, y_offset: int = 0
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of one frame over the whole band: (best 1/z (H, W) f32,
     winner slot (H, W) i32, -1 where nothing covers). Slots are walked in
     ascending order with the strict ``>`` update, so the earlier slot keeps a
     depth tie (render.swift:323-325)."""
     dev = trf.device
-    pyi = torch.arange(height, dtype=torch.int32, device=dev)[:, None]
+    pyi = y_offset + torch.arange(height, dtype=torch.int32, device=dev)[:, None]
     pxi = torch.arange(width, dtype=torch.int32, device=dev)[None, :]
     pyf, pxf = pyi.to(torch.float32), pxi.to(torch.float32)
     best = torch.zeros((height, width), dtype=torch.float32, device=dev)
@@ -264,15 +323,15 @@ def _rsqrt3(x, y, z):
 
 
 def _shade_winners(best: torch.Tensor, win: torch.Tensor, trf: torch.Tensor,
-                   tri: torch.Tensor):
-    """Phase 2 for every pixel of one frame that has a winner:
+                   tri: torch.Tensor, y_offset: int = 0):
+    """Phase 2 for every pixel of one frame (or band) that has a winner:
     perspective-correct weights, halfway-vector headlight and the flat color
     pack. Returns (pixel rows, pixel columns, shade, packs, textured mask)
     over those pixels, and the inputs of phase 3's texel fetch over the
     textured ones: (texture index, uv (n, 2), ripmap level (n, 2))."""
     yy, xx = torch.nonzero(win >= 0, as_tuple=True)
     s = win[yy, xx].long()
-    pxf, pyf = xx.to(torch.float32), yy.to(torch.float32)
+    pxf, pyf = xx.to(torch.float32), (yy + y_offset).to(torch.float32)
     b = best[yy, xx]
 
     def col(row):
@@ -317,14 +376,16 @@ def _check_sampling(sampling: str) -> None:
 
 def shade_plain(best: torch.Tensor, win: torch.Tensor, trf: torch.Tensor,
                 tri: torch.Tensor, textures: torch.Tensor, *, background: int,
-                sampling: str = "nearest") -> torch.Tensor:
-    """Phases 2 and 3 for every pixel of one frame that has a winner: the flat
-    color pack, or the nearest or bilinear texel fetch and shade multiply.
-    Background elsewhere. Returns packed pixels (H, W) int32."""
+                sampling: str = "nearest", y_offset: int = 0) -> torch.Tensor:
+    """Phases 2 and 3 for every pixel of one frame (or of the band that
+    starts at row ``y_offset``) that has a winner: the flat color pack, or
+    the nearest or bilinear texel fetch and shade multiply. Background
+    elsewhere. Returns packed pixels (H, W) int32."""
     _check_sampling(sampling)
     pix = torch.full(best.shape, background, dtype=torch.int32,
                      device=best.device)
-    yy, xx, sh, out, tx, tex, uv, level = _shade_winners(best, win, trf, tri)
+    yy, xx, sh, out, tx, tex, uv, level = _shade_winners(best, win, trf, tri,
+                                                         y_offset)
     if bool(tx.any()):
         sample = sample_ripmap if sampling == "nearest" else sample_ripmap_bilinear
         rgb = sample(textures, tex, uv, level)
@@ -356,32 +417,44 @@ def _over_frames(frame, per_frame, trf):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
+def _plain_outputs(best, win, trf, tri, textures, *, background, sampling,
+                   y_offset, track_ids):
+    """Phases 2-3 of one frame from its phase 1: (pixels, depth[, gids])."""
+    pix = shade_plain(best, win, trf, tri, textures, background=background,
+                      sampling=sampling, y_offset=y_offset)
+    return (pix, best, _gid_plane(win, tri)) if track_ids else (pix, best)
+
+
 def raster_flat_plain(counts, ids, trf, tri, textures, *, width: int,
-                      height: int, background: int, sampling: str):
+                      height: int, background: int, sampling: str,
+                      y_offset: int = 0, track_ids: bool = False):
     """Plain PyTorch version of the flat kernels: same inputs, same (pixels
-    (..., H, W) int32, depth (..., H, W) f32)."""
+    (..., H, W) int32, depth (..., H, W) f32[, gids (..., H, W) int32]),
+    over rows [y_offset, y_offset + H)."""
+    _check_band(y_offset)
+
     def frame(c, i, f, t):
-        best, win = visibility_plain(c, i, f, t, width=width, height=height)
-        return shade_plain(best, win, f, t, textures, background=background,
-                           sampling=sampling), best
+        if track_ids:
+            _check_gid_order(t, torch.tensor(_binned_slots(c, i), dtype=torch.long))
+        best, win = visibility_plain(c, i, f, t, width=width, height=height,
+                                     y_offset=y_offset)
+        return _plain_outputs(best, win, f, t, textures, background=background,
+                              sampling=sampling, y_offset=y_offset,
+                              track_ids=track_ids)
 
     return _over_frames(frame, (counts, ids, trf, tri), trf)
 
 
-def raster_flat_nearest_plain(counts, ids, trf, tri, textures, *, width: int,
-                              height: int, background: int):
+def raster_flat_nearest_plain(counts, ids, trf, tri, textures, **kw):
     """Plain PyTorch version of ``raster_flat_nearest``."""
-    return raster_flat_plain(counts, ids, trf, tri, textures, width=width,
-                             height=height, background=background,
-                             sampling="nearest")
+    return raster_flat_plain(counts, ids, trf, tri, textures,
+                             sampling="nearest", **kw)
 
 
-def raster_flat_bilinear_plain(counts, ids, trf, tri, textures, *, width: int,
-                               height: int, background: int):
+def raster_flat_bilinear_plain(counts, ids, trf, tri, textures, **kw):
     """Plain PyTorch version of ``raster_flat_bilinear``."""
-    return raster_flat_plain(counts, ids, trf, tri, textures, width=width,
-                             height=height, background=background,
-                             sampling="bilinear")
+    return raster_flat_plain(counts, ids, trf, tri, textures,
+                             sampling="bilinear", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -394,11 +467,13 @@ _I32_MAX_KEY = (1 << 31) - 1
 
 
 def segmented_pairs(ids, starts, counts, bb, bb_count, tri, *, width: int,
-                    height: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    height: int, y_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every (tile, slot) pair the segmented kernel evaluates and may let win
-    in one frame: each tile's segment, and each broadband slot with every
-    tile its bbox touches. Returns (tiles, slots), int64 (n,) each. Reads
-    counts back to the host: for the plain version and measurements only."""
+    in one frame (or band): each tile's segment, and each broadband slot with
+    every tile its bbox touches. Returns (tiles, slots), int64 (n,) each.
+    Reads counts back to the host: for the plain version and measurements
+    only."""
     dev = ids.device
     ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
     counts = counts.long()
@@ -411,8 +486,8 @@ def segmented_pairs(ids, starts, counts, bb, bb_count, tri, *, width: int,
     big = bb[:int(bb_count.reshape(-1)[0])].long()
     bbox = {"xmin": tri[_XMIN], "xmax": tri[_XMAX], "ymin": tri[_YMIN],
             "ymax": tri[_YMAX]}
-    x0, x1, y0, y1 = (v[big].long() for v in _tile_bbox(bbox, ntx, nty,
-                                                        TILE_W, TILE_H))
+    x0, x1, y0, y1 = (v[big].long() for v in _tile_bbox(
+        bbox, ntx, nty, TILE_W, TILE_H, y_offset))
     wx = x1 - x0 + 1
     area = wx * (y1 - y0 + 1)
     bb_slots = torch.repeat_interleave(big, area)
@@ -424,29 +499,31 @@ def segmented_pairs(ids, starts, counts, bb, bb_count, tri, *, width: int,
 
 
 def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
-                               width: int, height: int
+                               width: int, height: int, y_offset: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Phase 1 of the segmented kernels over one whole frame: (best 1/z
-    (H, W) f32, winner slot (H, W) i32, -1 where nothing covers).
+    """Phase 1 of the segmented kernels over one whole frame (or band): (best
+    1/z (H, W) f32, winner slot (H, W) i32, -1 where nothing covers).
 
     Every (tile, slot) pair of ``segmented_pairs`` is evaluated over the
-    tile's pixels, in chunks, with each edge function rounded as
-    ``(w00 + px*dx) + py*dy`` as the kernel rounds it. A pixel's winner is the
-    order-independent rule of raster_pallas.py:463-471 — the greatest 1/z,
-    and at equal 1/z > 0 the smaller slot — taken by one ``amax`` over the
-    int64 key ``bits(1/z) << 32 | (2^31 - 1 - slot)``: positive f32 bit
-    patterns order as the floats do, and 1/z <= 0 (or NaN) never wins."""
+    tile's pixels, in chunks, with each edge function rounded as ``(w00 +
+    px*dx) + py*dy`` as the kernel rounds it. A pixel's winner is the order-independent rule of
+    raster_pallas.py:463-471 — the greatest 1/z, and at equal 1/z > 0 the
+    smaller slot — taken by one ``amax`` over the int64 key ``bits(1/z) << 32
+    | (2^31 - 1 - slot)``: positive f32 bit patterns order as the floats do,
+    and 1/z <= 0 (or NaN) never wins."""
     dev = trf.device
     ntx = _cdiv(width, TILE_W)
     tiles, slots = segmented_pairs(ids, starts, counts, bb, bb_count, tri,
-                                   width=width, height=height)
+                                   width=width, height=height,
+                                   y_offset=y_offset)
     lane = torch.arange(TILE_W * TILE_H, device=dev)
     lx, ly = lane % TILE_W, lane // TILE_W
     key = torch.zeros(height * width, dtype=torch.int64, device=dev)
     for c in range(0, tiles.numel(), _PAIR_CHUNK):
         t, s = tiles[c:c + _PAIR_CHUNK], slots[c:c + _PAIR_CHUNK]
         px = (t % ntx * TILE_W)[:, None] + lx[None, :]
-        py = (t // ntx * TILE_H)[:, None] + ly[None, :]
+        row = (t // ntx * TILE_H)[:, None] + ly[None, :]
+        py = row + y_offset
         pxf, pyf = px.to(torch.float32), py.to(torch.float32)
         f, i = trf[:, s, None], tri[:, s, None]
         w0, w1, w2 = (f[_W00 + k] + pxf * f[_DX + k] + pyf * f[_DY + k]
@@ -455,10 +532,10 @@ def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
         wins = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (ooz > 0)
                 & (px >= i[_XMIN]) & (px <= i[_XMAX])
                 & (py >= i[_YMIN]) & (py <= i[_YMAX])
-                & (px < width) & (py < height))
+                & (px < width) & (row < height))
         k = ((ooz.view(torch.int32).to(torch.int64) << 32)
              | (_I32_MAX_KEY - s)[:, None])
-        key.scatter_reduce_(0, torch.where(wins, py * width + px, 0).reshape(-1),
+        key.scatter_reduce_(0, torch.where(wins, row * width + px, 0).reshape(-1),
                             torch.where(wins, k, 0).reshape(-1), reduce="amax")
     best = (key >> 32).to(torch.int32).view(torch.float32).reshape(height, width)
     win = torch.where(key > 0, _I32_MAX_KEY - (key & _I32_MAX_KEY), -1)
@@ -467,35 +544,40 @@ def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
 
 def raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
                            textures, *, width: int, height: int,
-                           background: int, sampling: str):
+                           background: int, sampling: str, y_offset: int = 0,
+                           track_ids: bool = False):
     """Plain PyTorch version of the segmented kernels: same inputs, same
-    (pixels (..., H, W) int32, depth (..., H, W) f32)."""
+    (pixels (..., H, W) int32, depth (..., H, W) f32[, gids (..., H, W)
+    int32]), over rows [y_offset, y_offset + H)."""
+    _check_band(y_offset)
+
     def frame(i, st, c, b, n, f, t):
+        if track_ids:     # the segments lie at the head of ids, tile-major
+            _check_gid_order(t, torch.unique(torch.cat(
+                [i[:int(c.sum())], b[:int(n.reshape(-1)[0])]]).long()))
         best, win = visibility_segmented_plain(i, st, c, b, n, f, t,
-                                               width=width, height=height)
-        return shade_plain(best, win, f, t, textures, background=background,
-                           sampling=sampling), best
+                                               width=width, height=height,
+                                               y_offset=y_offset)
+        return _plain_outputs(best, win, f, t, textures, background=background,
+                              sampling=sampling, y_offset=y_offset,
+                              track_ids=track_ids)
 
     return _over_frames(frame, (ids, starts, counts, bb, bb_count, trf, tri),
                         trf)
 
 
 def raster_segmented_nearest_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                   textures, *, width: int, height: int,
-                                   background: int):
+                                   textures, **kw):
     """Plain PyTorch version of ``raster_segmented_nearest``."""
     return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                  textures, width=width, height=height,
-                                  background=background, sampling="nearest")
+                                  textures, sampling="nearest", **kw)
 
 
 def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, trf,
-                                    tri, textures, *, width: int, height: int,
-                                    background: int):
+                                    tri, textures, **kw):
     """Plain PyTorch version of ``raster_segmented_bilinear``."""
     return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                  textures, width=width, height=height,
-                                  background=background, sampling="bilinear")
+                                  textures, sampling="bilinear", **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -503,9 +585,10 @@ def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, trf,
 
 @functools.cache
 def _kernel(name: str, pointers: int, ints: int):
-    """The C entry point ``name``: ``pointers`` device pointers, then
-    ``ints`` ints (B, S, [entries per frame,] the texture count, width,
-    height and background), then the stream."""
+    """The C entry point ``name``: ``pointers`` device pointers (the last,
+    the gid plane, may be null), then ``ints`` ints (B, S, [entries per
+    frame,] the texture count, width, height, y0 and background), then the
+    stream."""
     fn = getattr(kernels.library(), name)
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                    + [ctypes.c_void_p])
@@ -532,34 +615,44 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: need shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _launch(name: str, inputs, textures: torch.Tensor, lead, ints, *,
-            width: int, height: int, background: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Allocate the (..., H, W) outputs and launch ``name`` on the tensors'
-    card over a (ntx, nty, B) grid; raise if the launch was refused."""
+def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
+            width: int, height: int, background: int, y_offset: int,
+            track_ids: bool):
+    """Allocate the (..., H, W) outputs and launch ``wrapper``'s kernel on
+    the tensors' card over a (ntx, nty, B) grid, in its tracking form when
+    ``track_ids`` (a gid plane is passed) or not (a null pointer); raise if
+    the launch was refused, else count it."""
     dev = textures.device
-    pix = torch.empty((*lead, height, width), dtype=torch.int32, device=dev)
-    depth = torch.empty((*lead, height, width), dtype=torch.float32, device=dev)
-    ptrs = [t.data_ptr() for t in (*inputs, textures, pix, depth)]
-    ints = (math.prod(lead), *ints, textures.shape[0], width, height,
+    outs = [torch.empty((*lead, height, width), dtype=dt, device=dev)
+            for dt in (torch.int32, torch.float32, torch.int32)[:2 + track_ids]]
+    ptrs = [t.data_ptr() for t in (*inputs, textures, *outs)]
+    ptrs += [] if track_ids else [None]
+    ints = (math.prod(lead), *ints, textures.shape[0], width, height, y_offset,
             background)
+    name = wrapper.__name__
     with torch.cuda.device(dev):   # the launch goes to the tensors' card
         err = _kernel(name, len(ptrs), len(ints))(
             *ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {kernels.error_string(err)}")
-    return pix, depth
+    if track_ids:
+        wrapper.launches_ids += 1
+    else:
+        wrapper.launches += 1
+    return tuple(outs)
 
 
 def _raster_flat(wrapper, sampling, counts, ids, trf, tri, textures, *,
-                 width, height, background):
-    kw = dict(width=width, height=height, background=background)
+                 width, height, background, y_offset, track_ids):
+    kw = dict(width=width, height=height, background=background,
+              y_offset=y_offset, track_ids=track_ids)
     dev = trf.device
     if dev.type == "cpu":
         return raster_flat_plain(counts, ids, trf, tri, textures,
                                  sampling=sampling, **kw)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
+    _check_band(y_offset)
     lead, s = _frame_dims(trf)
     ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
     _check(counts, "counts", torch.int32, (*lead, ntiles, 1), dev)
@@ -568,55 +661,65 @@ def _raster_flat(wrapper, sampling, counts, ids, trf, tri, textures, *,
     _check(tri, "tri", torch.int32, (*lead, _I32_ROWS, s), dev)
     _check(textures, "textures", torch.int32,
            (textures.shape[0], 512, 512), dev)
-    out = _launch(wrapper.__name__, (counts, ids, trf, tri), textures, lead,
-                  (s,), **kw)
-    wrapper.launches += 1
-    return out
+    return _launch(wrapper, (counts, ids, trf, tri), textures, lead, (s,), **kw)
 
 
 def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
                         trf: torch.Tensor, tri: torch.Tensor,
                         textures: torch.Tensor, *, width: int, height: int,
-                        background: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                        background: int, y_offset: int = 0,
+                        track_ids: bool = False):
     """Visibility, deferred shading and nearest texel fetch for one frame or
     a batch, in one launch.
 
     counts (..., ntiles, 1) i32 and ids (..., ntiles, S) i32 from
-    ``bin_triangles`` at TILE_W x TILE_H; trf (..., 43, S) f32 and tri (...,
-    7, S) i32 from ``pack_setup_tables``; textures (NT, 512, 512) i32, shared
-    by every frame. The leading axis, where present, is the batch B. Returns
-    (pixels (..., H, W) int32 holding 0x00RRGGBB, depth (..., H, W) f32 =
-    1/z, 0 where empty).
+    ``bin_triangles`` at TILE_W x TILE_H (with the same ``y_offset``); trf
+    (..., 43, S) f32 and tri (..., 7, S) i32 from ``pack_setup_tables``;
+    textures (NT, 512, 512) i32, shared by every frame. The leading axis,
+    where present, is the batch B. Returns (pixels (..., H, W) int32 holding
+    0x00RRGGBB, depth (..., H, W) f32 = 1/z, 0 where empty) for framebuffer
+    rows [y_offset, y_offset + H); with ``track_ids`` also the winners' row
+    _GID values (..., H, W) int32, -1 where empty, whose precondition
+    (``_check_gid_order``: gids ascend with slot order among live slots) the
+    plain version checks.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``raster_flat_nearest.launches`` counts the kernel's launches.
+    ``raster_flat_nearest.launches`` counts the kernel's launches, and
+    ``.launches_ids`` those of its tracking form.
     """
     return _raster_flat(raster_flat_nearest, "nearest", counts, ids, trf, tri,
                         textures, width=width, height=height,
-                        background=background)
+                        background=background, y_offset=y_offset,
+                        track_ids=track_ids)
 
 
 def raster_flat_bilinear(counts: torch.Tensor, ids: torch.Tensor,
                          trf: torch.Tensor, tri: torch.Tensor,
                          textures: torch.Tensor, *, width: int, height: int,
-                         background: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                         background: int, y_offset: int = 0,
+                         track_ids: bool = False):
     """``raster_flat_nearest`` with the bilinear texel fetch: the four taps
     of ``ops.texture.bilinear_taps``, blended as float channels before the
-    shade multiply. ``raster_flat_bilinear.launches`` counts its launches."""
+    shade multiply. ``raster_flat_bilinear.launches`` and ``.launches_ids``
+    count its launches."""
     return _raster_flat(raster_flat_bilinear, "bilinear", counts, ids, trf,
                         tri, textures, width=width, height=height,
-                        background=background)
+                        background=background, y_offset=y_offset,
+                        track_ids=track_ids)
 
 
 def _raster_segmented(wrapper, sampling, ids, starts, counts, bb, bb_count,
-                      trf, tri, textures, *, width, height, background):
-    kw = dict(width=width, height=height, background=background)
+                      trf, tri, textures, *, width, height, background,
+                      y_offset, track_ids):
+    kw = dict(width=width, height=height, background=background,
+              y_offset=y_offset, track_ids=track_ids)
     dev = trf.device
     if dev.type == "cpu":
         return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf,
                                       tri, textures, sampling=sampling, **kw)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
+    _check_band(y_offset)
     lead, s = _frame_dims(trf)
     ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
     entries = ids.shape[-1]
@@ -629,75 +732,97 @@ def _raster_segmented(wrapper, sampling, ids, starts, counts, bb, bb_count,
     _check(tri, "tri", torch.int32, (*lead, _I32_ROWS, s), dev)
     _check(textures, "textures", torch.int32,
            (textures.shape[0], 512, 512), dev)
-    out = _launch(wrapper.__name__, (ids, starts, counts, bb, bb_count, trf, tri),
-                  textures, lead, (s, entries), **kw)
-    wrapper.launches += 1
-    return out
+    return _launch(wrapper, (ids, starts, counts, bb, bb_count, trf, tri),
+                   textures, lead, (s, entries), **kw)
 
 
 def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
                              counts: torch.Tensor, bb: torch.Tensor,
                              bb_count: torch.Tensor, trf: torch.Tensor,
                              tri: torch.Tensor, textures: torch.Tensor, *,
-                             width: int, height: int, background: int
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+                             width: int, height: int, background: int,
+                             y_offset: int = 0, track_ids: bool = False):
     """Visibility over each tile's segment and the broadband list, deferred
     shading and nearest texel fetch for one frame or a batch, in one launch.
 
     ids (..., E) i32, starts (..., ntiles) i32, counts (..., ntiles) i32, bb
-    (..., S) i32 and bb_count (..., 1) i32 from ``bin_segments``; trf (...,
-    43, S) f32 and tri (..., 7, S) i32 from ``pack_setup_tables``; textures
-    (NT, 512, 512) i32, shared by every frame. The leading axis, where
-    present, is the batch B. Returns (pixels (..., H, W) int32 holding
-    0x00RRGGBB, depth (..., H, W) f32 = 1/z, 0 where empty), equal to
+    (..., S) i32 and bb_count (..., 1) i32 from ``bin_segments`` (with the
+    same ``y_offset``); trf (..., 43, S) f32 and tri (..., 7, S) i32 from
+    ``pack_setup_tables``; textures (NT, 512, 512) i32, shared by every
+    frame. The leading axis, where present, is the batch B. Returns (pixels
+    (..., H, W) int32 holding 0x00RRGGBB, depth (..., H, W) f32 = 1/z, 0
+    where empty[, gids (..., H, W) int32 with ``track_ids``]), equal to
     ``raster_flat_nearest`` on the same setup table.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``raster_segmented_nearest.launches`` counts the kernel's launches.
+    ``raster_segmented_nearest.launches`` counts the kernel's launches, and
+    ``.launches_ids`` those of its tracking form.
     """
     return _raster_segmented(raster_segmented_nearest, "nearest", ids, starts,
                              counts, bb, bb_count, trf, tri, textures,
-                             width=width, height=height, background=background)
+                             width=width, height=height, background=background,
+                             y_offset=y_offset, track_ids=track_ids)
 
 
 def raster_segmented_bilinear(ids: torch.Tensor, starts: torch.Tensor,
                               counts: torch.Tensor, bb: torch.Tensor,
                               bb_count: torch.Tensor, trf: torch.Tensor,
                               tri: torch.Tensor, textures: torch.Tensor, *,
-                              width: int, height: int, background: int
-                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+                              width: int, height: int, background: int,
+                              y_offset: int = 0, track_ids: bool = False):
     """``raster_segmented_nearest`` with the bilinear texel fetch, equal to
     ``raster_flat_bilinear`` on the same setup table.
-    ``raster_segmented_bilinear.launches`` counts its launches."""
+    ``raster_segmented_bilinear.launches`` and ``.launches_ids`` count its
+    launches."""
     return _raster_segmented(raster_segmented_bilinear, "bilinear", ids, starts,
                              counts, bb, bb_count, trf, tri, textures,
-                             width=width, height=height, background=background)
+                             width=width, height=height, background=background,
+                             y_offset=y_offset, track_ids=track_ids)
 
 
 for _wrapper in (raster_flat_nearest, raster_flat_bilinear,
                  raster_segmented_nearest, raster_segmented_bilinear):
     _wrapper.launches = 0
+    _wrapper.launches_ids = 0
 
 _FLAT = {"nearest": raster_flat_nearest, "bilinear": raster_flat_bilinear}
 _SEGMENTED = {"nearest": raster_segmented_nearest,
               "bilinear": raster_segmented_bilinear}
 
+# The gid plane's value where a pixel has no winner after ``rasterize``: the
+# identity of the (max 1/z, then min gid) merge (the kernels write -1).
+NO_GID = 2 ** 30
+
 
 def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
               width: int, height: int, background: int,
-              sampling: str = "nearest") -> Tuple[torch.Tensor, torch.Tensor]:
+              sampling: str = "nearest", gids=None, y_offset: int = 0):
     """Bin, pack and rasterize one frame, or a batch (setup arrays with a
     leading B), in one kernel launch: (pixels (..., H, W) int32, depth (...,
-    H, W) f32). The host side of ``rasterize_pallas`` and
-    ``rasterize_pallas_batch``; any scene size renders in one pass (the JAX
-    package's slot cap and multipass answer the TPU's SMEM, which the card
-    does not have). The route follows S alone."""
+    H, W) f32) for framebuffer rows [y_offset, y_offset + H). The host side
+    of ``rasterize_pallas`` and ``rasterize_pallas_batch``; any scene size
+    renders in one pass (the JAX package's slot cap and multipass answer the
+    TPU's SMEM, which the card does not have). The route follows S alone.
+
+    With ``gids`` ((S,) or (..., S) int32, ascending with slot order among
+    live slots) the launch tracks winners and a third plane holds each
+    pixel's winner's gid, NO_GID where depth is 0: the single-pass
+    counterpart of ``_rasterize_compacted_ids``."""
     _check_sampling(sampling)
-    trf, tri = pack_setup_tables(setup)
-    kw = dict(width=width, height=height, background=background)
+    trf, tri = pack_setup_tables(setup, gids)
+    track = gids is not None
+    kw = dict(width=width, height=height, background=background,
+              y_offset=y_offset, track_ids=track)
     if trf.shape[-1] <= FLAT_MAX_SLOTS:
         ids, counts = bin_triangles(setup, width=width, height=height,
-                                    tile_h=TILE_H, tile_w=TILE_W)
-        return _FLAT[sampling](counts, ids, trf, tri, textures, **kw)
-    binned = bin_segments(setup, width=width, height=height)
-    return _SEGMENTED[sampling](*binned, trf, tri, textures, **kw)
+                                    tile_h=TILE_H, tile_w=TILE_W,
+                                    y_offset=y_offset)
+        out = _FLAT[sampling](counts, ids, trf, tri, textures, **kw)
+    else:
+        binned = bin_segments(setup, width=width, height=height,
+                              y_offset=y_offset)
+        out = _SEGMENTED[sampling](*binned, trf, tri, textures, **kw)
+    if not track:
+        return out
+    pix, depth, gid = out
+    return pix, depth, torch.where(depth > 0, gid, NO_GID)

@@ -1,0 +1,269 @@
+"""Multi-device rendering over a (frame, fb) grid of torch.distributed ranks:
+the counterpart of ``swift3drenderer_tpu.parallel.sharding``, one process per
+device.
+
+* axis ``frame`` splits a camera batch (independent frames: multi-view
+  rendering, or the serving batch);
+* axis ``fb`` splits the framebuffer into horizontal row bands: each rank
+  renders its band (``rasterize(y_offset=...)``) from the full setup table;
+* ``render_scene_sharded`` splits the scene's triangles instead: each rank
+  renders its triangle range over the whole frame with the winners' global
+  ids (``renderer.render_range``), and the frames merge by (max 1/z, then
+  min global id), a total order per pixel, so the composite is the
+  single-device frame bit for bit whatever the split.
+
+Geometry is recomputed on every rank rather than sent: it is small beside the
+pixels. The composite is a butterfly (recursive doubling) of
+``batch_isend_irecv`` exchanges when every axis is a power of two, each rank
+sending its three planes packed in one int32 tensor log2(n) times; otherwise
+an all_gather and a merge in rank order.
+
+Collectives run over NCCL for CUDA tensors and gloo for CPU ones. The caller
+initialises the default process group (address, world size, rank);
+``make_mesh`` builds the grid's sub-groups on it.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..config import DEFAULT_CONFIG, RenderConfig
+from ..convert import resolve_device
+from ..ops.raster import NO_GID, rasterize
+from ..renderer import build_setup, render_range, scene_to_device
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """A (frame, fb) grid over ranks 0 .. n_frame * n_fb - 1 of the default
+    process group, seen from this process's rank: rank r sits at (r // n_fb,
+    r % n_fb). ``group`` spans the grid; ``frame_group`` the ranks that share
+    this rank's fb index (its frame axis), ``fb_group`` those that share its
+    frame index (its fb axis). A rank outside the grid holds no group and
+    renders nothing."""
+    n_frame: int
+    n_fb: int
+    rank: int
+    device: torch.device
+    group: Optional[object]
+    frame_group: Optional[object]
+    fb_group: Optional[object]
+
+    @property
+    def size(self) -> int:
+        return self.n_frame * self.n_fb
+
+    @property
+    def member(self) -> bool:
+        return self.rank < self.size
+
+    @property
+    def coords(self) -> Tuple[int, int]:
+        return divmod(self.rank, self.n_fb)
+
+    def axis_ranks(self, axis: str) -> list:
+        """The global ranks along ``axis`` ("frame" or "fb") through this
+        rank, in axis order."""
+        f, b = self.coords
+        if axis == "frame":
+            return [i * self.n_fb + b for i in range(self.n_frame)]
+        return [f * self.n_fb + i for i in range(self.n_fb)]
+
+
+def make_mesh(n_frame: int = 1, n_fb: Optional[int] = None, *,
+              device="cuda") -> Mesh:
+    """A (frame, fb) grid over the first n_frame * n_fb ranks of the
+    initialised default process group (``make_mesh`` of the JAX package,
+    over ranks instead of devices). ``n_fb`` defaults to the world size over
+    ``n_frame``. Every rank of the world calls it, in the same order as its
+    other ``new_group`` calls: it makes one group for the grid and, when
+    both axes are longer than one, one per row and one per column (an axis
+    of one rank needs none, and the other axis is then the grid), with NCCL
+    for a CUDA ``device`` and gloo for the CPU."""
+    if not dist.is_initialized():
+        raise RuntimeError("initialise the default process group first "
+                           "(torch.distributed.init_process_group)")
+    world = dist.get_world_size()
+    if n_fb is None:
+        n_fb = world // max(n_frame, 1)
+    n = n_frame * n_fb
+    if n_frame < 1 or n_fb < 1:
+        raise ValueError(f"need a grid of at least 1 x 1, got {n_frame} x {n_fb}")
+    if n > world:
+        raise ValueError(f"need {n} ranks, have {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    rank = dist.get_rank()
+
+    groups = {}     # this rank's group of each kind
+
+    def new_group(kind, ranks):
+        g = dist.new_group(ranks, backend=backend)
+        if rank in ranks:
+            groups[kind] = g
+
+    new_group("grid", list(range(n)))
+    if n_frame > 1 and n_fb > 1:    # else an axis is the grid or a single rank
+        for f in range(n_frame):
+            new_group("fb", [f * n_fb + b for b in range(n_fb)])
+        for b in range(n_fb):
+            new_group("frame", [f * n_fb + b for f in range(n_frame)])
+    grid = groups.get("grid")
+    return Mesh(n_frame, n_fb, rank, dev, grid,
+                groups.get("frame", grid if n_fb == 1 else None),
+                groups.get("fb", grid if n_frame == 1 else None))
+
+
+def _member(mesh: Mesh) -> None:
+    if not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is not in the {mesh.n_frame} x "
+                         f"{mesh.n_fb} mesh")
+
+
+def merge_depth_gid(pix, ooz, gid, opix, oooz, ogid):
+    """Per pixel, the (pixel, 1/z, gid) of the two with the greater 1/z, and
+    at equal 1/z > 0 the smaller gid (sharding.py:240-241, 279 of the JAX
+    package). (background, 0, NO_GID) is its identity."""
+    upd = (oooz > ooz) | ((oooz == ooz) & (oooz > 0) & (ogid < gid))
+    return (torch.where(upd, opix, pix), torch.where(upd, oooz, ooz),
+            torch.where(upd, ogid, gid))
+
+
+def _pack(pix, ooz, gid):
+    return torch.stack([pix, ooz.view(torch.int32), gid])
+
+
+def _unpack(packed):
+    return packed[0], packed[1].view(torch.float32), packed[2]
+
+
+def _butterfly_merge(mesh: Mesh, packed: torch.Tensor) -> torch.Tensor:
+    """Recursive doubling along each axis in turn: at step k each rank
+    exchanges its packed planes with the rank whose axis index differs in
+    bit k, in one ``batch_isend_irecv``, and both keep the merge. Every axis
+    size must be a power of two. The merge is a total order per pixel, so
+    every rank ends with the same frame."""
+    for axis, group in (("frame", mesh.frame_group), ("fb", mesh.fb_group)):
+        ranks = mesh.axis_ranks(axis)
+        me = ranks.index(mesh.rank)
+        k = 1
+        while k < len(ranks):
+            peer = ranks[me ^ k]
+            other = torch.empty_like(packed)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, packed, peer, group, tag=k),
+                    dist.P2POp(dist.irecv, other, peer, group, tag=k)]):
+                req.wait()
+            packed = _pack(*merge_depth_gid(*_unpack(packed), *_unpack(other)))
+            k *= 2
+    return packed
+
+
+def _gather_merge(mesh: Mesh, packed: torch.Tensor,
+                  background: int) -> torch.Tensor:
+    """Every rank's packed planes gathered, merged in rank order from the
+    identity (the fallback for an axis that is not a power of two)."""
+    parts = [torch.empty_like(packed) for _ in range(mesh.size)]
+    dist.all_gather(parts, packed, group=mesh.group)
+    pix, ooz, gid = _unpack(packed)
+    acc = (torch.full_like(pix, background), torch.zeros_like(ooz),
+           torch.full_like(gid, NO_GID))
+    for part in parts:
+        acc = merge_depth_gid(*acc, *_unpack(part))
+    return _pack(*acc)
+
+
+def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
+                         width: int, height: int,
+                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Triangle-sharded rendering, the scene-parallel axis: rank r renders
+    triangles [r * L, (r + 1) * L) over the whole frame, L = ceil(T / n)
+    (the last ranges padded with dead triangles), with its winners' global
+    ids, and the n frames are composited by (max 1/z, then min global id).
+    Every rank of the mesh returns the composite (pixels (H, W) int32, depth
+    (H, W) f32), equal bit for bit to ``render_frame`` on one device."""
+    _member(mesh)
+    local_t = math.ceil(dev["vert_c"].shape[0] / mesh.size)
+    pix, ooz, gid = render_range(dev, m, lo=mesh.rank * local_t,
+                                 count=local_t, width=width, height=height,
+                                 config=config)
+    packed = _pack(pix, ooz, gid)
+    if all(s & (s - 1) == 0 for s in (mesh.n_frame, mesh.n_fb)):
+        packed = _butterfly_merge(mesh, packed)
+    else:
+        packed = _gather_merge(mesh, packed, config.background_packed)
+    pix, ooz, _ = _unpack(packed)
+    return pix, ooz
+
+
+def render_batch_sharded(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
+                         width: int, height: int,
+                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's block of a camera batch ms (B, 3, 4) rendered over the
+    mesh: frames [f * B/n_frame, (f + 1) * B/n_frame) and rows [b * H/n_fb,
+    (b + 1) * H/n_fb) for the rank at (f, b), as (pixels (B/n_frame,
+    H/n_fb, W) int32, depth f32). ``gather_batch`` assembles the batch."""
+    _member(mesh)
+    if height % mesh.n_fb:
+        raise ValueError(f"height {height} not divisible by fb axis {mesh.n_fb}")
+    if ms.shape[0] % mesh.n_frame:
+        raise ValueError(f"camera batch {ms.shape[0]} not divisible by frame "
+                         f"axis {mesh.n_frame}")
+    f, b = mesh.coords
+    local_b, local_h = ms.shape[0] // mesh.n_frame, height // mesh.n_fb
+    setup = build_setup(dev, ms[f * local_b:(f + 1) * local_b], width=width,
+                        height=height, config=config)
+    return rasterize(setup, dev["textures"], width=width, height=local_h,
+                     background=config.background_packed,
+                     sampling=config.sampling, y_offset=b * local_h)
+
+
+def gather_batch(mesh: Mesh, pix: torch.Tensor, depth: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (B, H, W) batch from every rank's ``render_batch_sharded`` block,
+    on every rank of the mesh (the JAX function's global array)."""
+    _member(mesh)
+    block = torch.stack([pix, depth.view(torch.int32)])
+    parts = [torch.empty_like(block) for _ in range(mesh.size)]
+    dist.all_gather(parts, block, group=mesh.group)
+    rows = [torch.cat(parts[f * mesh.n_fb:(f + 1) * mesh.n_fb], dim=2)
+            for f in range(mesh.n_frame)]
+    out = torch.cat(rows, dim=1)
+    return out[0], out[1].view(torch.float32)
+
+
+class ShardedRenderer:
+    """Multi-device front-end mirroring ``Renderer``'s API for camera
+    batches; the scene stays on ``device`` (NCCL ranks on CUDA, gloo ranks
+    on the CPU)."""
+
+    def __init__(self, scene, config: RenderConfig = DEFAULT_CONFIG,
+                 mesh: Optional[Mesh] = None, device="cuda") -> None:
+        scene.validate()
+        self.config = config
+        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        if self.mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's collectives run on {self.mesh.device}, "
+                             f"the scene on {self.device}")
+        self.dev = scene_to_device(scene, self.mesh.device)
+
+    def render_batch(self, matrices, width: int, height: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Render a camera batch ((B, 3, 4)) over the mesh; every rank
+        returns the whole batch: pixels (B, H, W) int32, depth f32."""
+        ms = torch.as_tensor(np.asarray(matrices, np.float32),
+                             device=self.mesh.device)
+        return gather_batch(self.mesh, *render_batch_sharded(
+            self.dev, ms, width=width, height=height, config=self.config,
+            mesh=self.mesh))

@@ -14,6 +14,9 @@ The scene is uploaded once, corner-major; per frame only the matrix goes to the
 device. A single frame is the batch of one. Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``, which takes the plain PyTorch
 version of every kernel.
+
+``render_range`` renders one triangle range of a frame with its winners'
+global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,66 @@ def scene_to_device(scene: Scene, device) -> Dict[str, torch.Tensor]:
         attr_c=attrs[ai],                                   # (T, 3, 3)
         tex_c=scene.attr_tex[ai[:, 0]],                     # (T,)
     ), device)
+
+
+def build_corners(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
+                  width: int, height: int, config: RenderConfig, lo: int = 0,
+                  count: int | None = None) -> Dict[str, torch.Tensor]:
+    """Stage A of the front-end for triangles [lo, lo + count) (all by
+    default) under one camera ``m`` (3, 4): the vertex and normal transforms
+    and the projection, before any clipping — (cv, rv, attr, n) (count, 3, 3)
+    and tex (count,), the arguments of ``clip_prepass``. The range is cut
+    before the transforms, which work per corner, so its values equal
+    ``build_setup``'s stage A for the same triangles, bit for bit
+    (``renderer.py::build_corners`` of the JAX package)."""
+    factor = config.factor(height)
+    t = dev["vert_c"].shape[0]
+    hi = t if count is None else min(lo + count, t)
+    lo = min(lo, hi)
+    cv_c = transform_points(dev["vert_c"][lo:hi].reshape(-1, 4), m)
+    rv_c = project(cv_c, factor, width / 2.0, height / 2.0)
+    nrm_c = transform_normals(dev["norm_c"][lo:hi].reshape(-1, 4), m)
+    n = hi - lo
+    return dict(cv=cv_c.reshape(n, 3, 3), rv=rv_c.reshape(n, 3, 3),
+                attr=dev["attr_c"][lo:hi], n=nrm_c.reshape(n, 3, 3),
+                tex=dev["tex_c"][lo:hi])
+
+
+def render_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, lo: int,
+                 count: int, width: int, height: int,
+                 config: RenderConfig = DEFAULT_CONFIG
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Triangles [lo, lo + count) of the frame under ``m`` (3, 4), with
+    their winners' global ids: (pixels (H, W) int32, 1/z (H, W) f32, gid
+    (H, W) int32, NO_GID = 2**30 where nothing covers).
+
+    The counterpart of ``_rasterize_corners_ids(gid_base=lo)``: stage A, the
+    clip prepass and the setup table run on the range alone, slot gids are
+    ``2 * (lo + t) + {0, 1}`` (global slot order, so they ascend with the
+    range's slot order), and the range renders in one tracked pass. A range
+    past the scene's last triangle is padded with dead triangles (all
+    corners at rv = 0, behind the near plane), as the JAX package pads a
+    device's range; a range wholly past it gives (background, 0, NO_GID).
+    Merged with ``parallel.merge_depth_gid``, the ranges of a partition give
+    ``render_frame``'s frame bit for bit: setup works per triangle, and the
+    (max 1/z, then min gid) rule is the kernels' tie rule."""
+    corners = build_corners(dev, m, width=width, height=height,
+                            config=config, lo=lo, count=count)
+    pad = count - corners["tex"].shape[0]
+    if pad:
+        corners = {k: torch.cat([v, v.new_zeros((pad, *v.shape[1:]))])
+                   for k, v in corners.items()}
+    factor = config.factor(height)
+    setup = triangle_setup(
+        clip_prepass(**corners, near=config.near, factor=factor,
+                     half_w=width / 2.0, half_h=height / 2.0),
+        width, height, config.min_area)
+    tri = lo + torch.arange(count, dtype=torch.int32, device=m.device)
+    gids = (2 * tri[:, None] + torch.arange(2, dtype=torch.int32,
+                                            device=m.device)).reshape(-1)
+    return rasterize(setup, dev["textures"], width=width, height=height,
+                     background=config.background_packed,
+                     sampling=config.sampling, gids=gids)
 
 
 def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,

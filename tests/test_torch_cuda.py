@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: ``raster_flat_nearest``,
 ``raster_segmented_nearest``, ``raster_flat_bilinear`` and
-``raster_segmented_bilinear`` against their plain PyTorch versions, batched
-launches against single ones, and the CUDA renderer (single frames and
+``raster_segmented_bilinear`` and their tracking forms against their plain
+PyTorch versions, batched launches against single ones, stitched bands
+against full frames, and the CUDA renderer (single frames and
 ``render_batch``) against the CPU one, on the default scene and on a stress
 field (3,078 slots, the segmented path).
 
@@ -202,3 +203,73 @@ def test_batched_launch_equals_single_launches_on_cuda(sampling):
             pc, dc = on_cpu.render(m, w, h)
             np.testing.assert_array_equal(pg[b].cpu().numpy().view(np.uint32), pc)
             np.testing.assert_array_equal(dg[b].cpu().numpy(), dc)
+
+
+def binned_for(route, setup, w, h, y_offset=0):
+    """The route's binner outputs in its kernel's argument order."""
+    if route == "flat":
+        return tr.bin_triangles(setup, width=w, height=h, tile_h=tr.TILE_H,
+                                tile_w=tr.TILE_W, y_offset=y_offset)[::-1]
+    return tr.bin_segments(setup, width=w, height=h, y_offset=y_offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_tracking_kernels_match_plain_on_cuda(sampling):
+    """Each kernel's tracking form (gids 2 * 500 + slot) against its plain
+    version on the card, bit for bit on pixels, depth and gids, single
+    frames and a B = 3 batch; its pixels and depth equal the non-tracking
+    launch's."""
+    need_card()
+    w, h = RAGGED
+    for route, name, kw in (("flat", "default", {}),
+                            ("segmented", "stress", {"objects": 128})):
+        dev, batch = setups_on_card(name, flight(12)[::4], w, h, **kw)
+        kernel = getattr(tr, f"raster_{route}_{sampling}")
+        plain = getattr(tr, f"raster_{route}_{sampling}_plain")
+        s = batch["live"].shape[-1]
+        gids = 1000 + torch.arange(s, dtype=torch.int32, device="cuda")
+        for setup in [{k: v[b] for k, v in batch.items()} for b in range(3)] + [batch]:
+            trf, tri = tr.pack_setup_tables(setup, gids)
+            binned = binned_for(route, setup, w, h)
+            args = (*binned, trf, tri, dev["textures"])
+            kw_out = dict(width=w, height=h, background=BG)
+            before = (kernel.launches, kernel.launches_ids)
+            pk, dk, gk = kernel(*args, track_ids=True, **kw_out)
+            pp, dp, gp = plain(*args, track_ids=True, **kw_out)
+            pn, dn = kernel(*args, **kw_out)
+            torch.cuda.synchronize()
+            assert (kernel.launches, kernel.launches_ids) == (before[0] + 1,
+                                                              before[1] + 1)
+            assert torch.equal(pk, pp) and torch.equal(dk, dp) and torch.equal(gk, gp)
+            assert torch.equal(pk, pn) and torch.equal(dk, dn)
+            drawn = dk > 0
+            assert bool(drawn.any()) and bool((gk[~drawn] == -1).all())
+            assert bool((gk[drawn] >= 1000).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flat", "segmented"])
+def test_stitched_bands_equal_full_frame_on_cuda(route):
+    """Bands of 2, 4 and 8 (ragged: 217 rows) at y0 > 0 through each
+    kernel's launch with y_offset, stacked, give the full frame bit for
+    bit."""
+    need_card()
+    w, h = RAGGED
+    name, kw = (("default", {}) if route == "flat"
+                else ("stress", {"objects": 128}))
+    dev, batch = setups_on_card(name, flight(12)[::4], w, h, **kw)
+    setup = {k: v[1] for k, v in batch.items()}
+    trf, tri = tr.pack_setup_tables(setup)
+    for sampling in ("nearest", "bilinear"):
+        kernel = getattr(tr, f"raster_{route}_{sampling}")
+        full = kernel(*binned_for(route, setup, w, h), trf, tri,
+                      dev["textures"], width=w, height=h, background=BG)
+        for n in (2, 4, 8):
+            edges = [h * i // n for i in range(n + 1)]
+            parts = [kernel(*binned_for(route, setup, w, y1 - y0, y0), trf, tri,
+                            dev["textures"], width=w, height=y1 - y0,
+                            background=BG, y_offset=y0)
+                     for y0, y1 in zip(edges, edges[1:])]
+            for got, want in zip((torch.cat(p) for p in zip(*parts)), full):
+                assert torch.equal(got, want), (sampling, n)
