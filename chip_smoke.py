@@ -5,7 +5,8 @@
 
 Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every CUDA kernel of the main path from csrc/ (nvcc, sm_90a);
+  2. build every CUDA kernel from csrc/ (nvcc, sm_90a; one nvcc for each of
+     raster.cu and probes.cu, started together);
   3. hold each kernel against its plain PyTorch version on the card, bit for
      bit: raster_flat_nearest and raster_flat_bilinear on the default
      scene's tables at 1920x1080 and 3840x2160 and the other small scene
@@ -57,6 +58,14 @@ Phases; any failed check raises and the script exits non-zero:
      flight makes (must be none), from torch.profiler; each route's device
      time per frame of the default scene's flight; and the same copy check
      over the 8-rank composites (per-range pipelines and merges).
+  7. the probes (swift3drenderer_tpu_torch.tools, csrc/probes.cu): each
+     probe's main(device="cuda") with its launch count set to 0 just before
+     and read just after (every mode checked against the tool's oracle and
+     timed at the tool's full ITERS); every mode's kernel against its plain
+     version on the card, bit for bit, at 1, 3, 64, 130 iterations and the
+     full ITERS, and the dynamic grid at nc = 0-4 with nc in device memory;
+     torch.profiler shows the dynamic-grid call makes no device-to-host copy;
+     `cuobjdump -sass` counts each instance's global loads inside its loop.
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -367,6 +376,224 @@ def load_parent_raster(parent: str):
     return importlib.import_module("s3d_parent.ops.raster")
 
 
+PROBE_ITERS = (1, 3, 64, 130)   # small counts, beside each tool's full ITERS
+PROBE_MIXES = (0, 127)
+PROBE_CHUNKS = (0, 1, 2, 3, 4)
+DYNAMIC_CALLS = 20
+PROBE_FAMILIES = {"probe_gather2d": "probe_gather2d_kernel",
+                  "probe_packed_fetch": "probe_packed_fetch_kernel",
+                  "fetch_microbench": "fetch_microbench_kernel",
+                  "probe_dynamic_grid": "probe_dynamic_grid_kernel"}
+
+
+def sass_loops(path: str) -> dict:
+    """From ``cuobjdump -sass`` of a built library, for each kernel (by its
+    mangled name): the instructions inside its loops (from a backward
+    branch's target to the branch), the global loads (LDG) among them, and
+    its global loads in all. {"error": ...} if cuobjdump is missing or
+    fails."""
+    import os
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, timeout=120)
+    except OSError as e:
+        return {"error": f"not measured: {e}"}
+    if proc.returncode:
+        return {"error": f"not measured: {proc.stderr.strip()[:200]}"}
+
+    def opcode(text):
+        words = text.split()
+        return words[1] if words[0].startswith("@") else words[0]
+
+    out = {}
+    for chunk in proc.stdout.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        instrs, labels = [], {}
+        for line in chunk.splitlines():
+            label = re.match(r"\s*(\.L_x_\d+):", line)
+            if label:
+                labels[label.group(1)] = len(instrs)
+                continue
+            ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+            if ins:
+                instrs.append((int(ins.group(1), 16), ins.group(2)))
+        at = {addr: i for i, (addr, _) in enumerate(instrs)}
+        in_loop = set()
+        for i, (_, text) in enumerate(instrs):
+            branch = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
+            if not branch:
+                continue
+            target = branch.group(1)
+            j = (labels.get(target) if target.startswith(".L")
+                 else at.get(int(target, 16)))
+            if j is not None and j <= i:
+                in_loop.update(range(j, i + 1))
+        loads = [i for i, (_, text) in enumerate(instrs)
+                 if opcode(text).startswith("LDG")]
+        out[name] = {"loop_instructions": len(in_loop),
+                     "global_loads_in_loops": sum(i in in_loop for i in loads),
+                     "global_loads": len(loads)}
+    return out
+
+
+def probe_sass(sass: dict, probe: str, mode_index: int | None) -> dict:
+    """The sass_loops entry of one probe kernel instance (its template
+    argument is the mode's index), or "not measured"."""
+    import re
+    for name, entry in sass.items():
+        if PROBE_FAMILIES[probe] not in name:
+            continue
+        arg = re.search(r"ILi(\d+)E", name)
+        if mode_index is None or (arg and int(arg.group(1)) == mode_index):
+            return entry
+    return {"error": sass.get("error", "not measured: instance not found")}
+
+
+def probes_phase(torch) -> list:
+    """Phase 7: the probes' entry points, their kernels against the plain
+    versions, the dynamic grid's copy check, and one kernels-line row each."""
+    from swift3drenderer_tpu_torch import kernels
+    from swift3drenderer_tpu_torch.tools import (
+        fetch_microbench, probe_dynamic_grid, probe_gather2d,
+        probe_packed_fetch)
+
+    modules = {"probe_gather2d": probe_gather2d,
+               "probe_packed_fetch": probe_packed_fetch,
+               "fetch_microbench": fetch_microbench,
+               "probe_dynamic_grid": probe_dynamic_grid}
+    wrappers = {name: getattr(m, name) for name, m in modules.items()}
+    plains = {name: getattr(m, f"{name}_plain") for name, m in modules.items()}
+
+    # The probes' main path: each tool's entry point, its count set to 0
+    # just before and read just after.
+    results, launches = {}, {}
+    for name, module in modules.items():
+        wrappers[name].launches = 0
+        results[name] = module.main("cuda")
+        launches[name] = wrappers[name].launches
+        per_mode = [r["launches"] for r in results[name].values()]
+        check(launches[name] == sum(per_mode) and min(per_mode) > 0,
+              f"{name}: {launches[name]} launches, per mode {per_mode}")
+
+    # Every mode's kernel against its plain version on the card; ``full``
+    # holds each mode's call at the tool's full count (the timed one).
+    def count(n):
+        return torch.tensor(n, dtype=torch.int32, device="cuda")
+
+    g2 = probe_gather2d.inputs("cuda")
+    pf = probe_packed_fetch.inputs("cuda")
+    mb = fetch_microbench.inputs("cuda")
+    tab, hbm = probe_dynamic_grid.inputs("cuda")
+    full = {"probe_gather2d": {m: (m, *g2[m], probe_gather2d.ITERS)
+                               for m in probe_gather2d.MODES},
+            "probe_packed_fetch": {m: (m, *pf[m], probe_packed_fetch.TIMED_MIX,
+                                       probe_packed_fetch.ITERS)
+                                   for m in probe_packed_fetch.MODES},
+            "fetch_microbench": {m: (m, *mb, fetch_microbench.ITERS)
+                                 for m in fetch_microbench.MODES},
+            "probe_dynamic_grid": {n: (tab, hbm, count(n))
+                                   for n in probe_dynamic_grid.CHUNKS}}
+    counts_of = {name: PROBE_ITERS + (modules[name].ITERS,)
+                 for name in ("probe_gather2d", "probe_packed_fetch",
+                              "fetch_microbench")}
+    cases = {
+        "probe_gather2d": [(m, *g2[m], n) for m in probe_gather2d.MODES
+                           for n in counts_of["probe_gather2d"]],
+        "probe_packed_fetch": [(m, *pf[m], mix, n)
+                               for m in probe_packed_fetch.MODES
+                               for mix in PROBE_MIXES
+                               for n in counts_of["probe_packed_fetch"]],
+        "fetch_microbench": [(m, *mb, n) for m in fetch_microbench.MODES
+                             for n in counts_of["fetch_microbench"]],
+        "probe_dynamic_grid": [(tab, hbm, count(n)) for n in PROBE_CHUNKS]}
+    errs = {}
+    for name, args_list in cases.items():
+        errs[name] = 0
+        for args in args_list:
+            got, want = wrappers[name](*args), plains[name](*args)
+            err = (got.double() - want.double()).abs().max().item()
+            what = [a if isinstance(a, (str, int)) else tuple(a.shape) for a in args]
+            check(torch.equal(got, want), f"{name} {what}: kernel and plain "
+                  f"version differ (max abs err {err})")
+            errs[name] = max(errs[name], err)
+        print(f"probe {name}: kernel == plain version, bit for bit, in "
+              f"{len(args_list)} calls", flush=True)
+
+    # The dynamic grid's launch is a few microseconds, shorter than the
+    # wrapper's host work, so its device time comes from the profiler's
+    # trace of DYNAMIC_CALLS back-to-back calls at each count; the trace
+    # also shows the calls copy nothing to the host.
+    device_ms = {}
+    for n, args in full["probe_dynamic_grid"].items():
+        prof = device_busy(torch, lambda: [probe_dynamic_grid.probe_dynamic_grid(
+            *args) for _ in range(DYNAMIC_CALLS)])
+        us = sum(v for k, v in prof["per_kernel"].items()
+                 if PROBE_FAMILIES["probe_dynamic_grid"] in k)
+        device_ms[n] = us / DYNAMIC_CALLS / 1e3 if us else "not measured"
+        print(f"profile probe_dynamic_grid nc={n}: {device_ms[n]} ms of device "
+              f"time per launch, device-to-host copies {prof['d2h']}, scalar "
+              f"reads {prof['scalar_reads']}", flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"probe_dynamic_grid nc={n}: the calls copied to the host")
+
+    sass = sass_loops(kernels.library_path(kernels.PROBES))
+    works = {"probe_gather2d": lambda m, a: probe_gather2d.work(m, a[1], a[2], a[-1]),
+             "probe_packed_fetch": lambda m, a: probe_packed_fetch.work(m, a[2], a[-1]),
+             "fetch_microbench": lambda m, a: fetch_microbench.work(m, a[2], a[-1]),
+             "probe_dynamic_grid": lambda nc, a: probe_dynamic_grid.work(nc)}
+    replaces = {"probe_gather2d": "tools/probe_gather2d.py:124",
+                "probe_packed_fetch": "tools/probe_packed_fetch.py:103",
+                "fetch_microbench": "tools/fetch_microbench.py:77",
+                "probe_dynamic_grid": "tools/probe_dynamic_grid.py:52"}
+    main_mode = {"probe_gather2d": "base8", "probe_packed_fetch": "gather8",
+                 "fetch_microbench": "full",
+                 "probe_dynamic_grid": f"nc={probe_dynamic_grid.NCMAX}"}
+    rows = []
+    for name, module in modules.items():
+        modes = []
+        for mode, res in results[name].items():
+            args = full[name][mode]
+            plain_ms = time_ms(torch, lambda: plains[name](*args), reps=3,
+                               warmup=1, windows=3)
+            entry = {"mode": mode if isinstance(mode, str) else f"nc={mode}",
+                     "ms": device_ms.get(mode, res["ms"]), "call_ms": res["ms"],
+                     "plain_ms": plain_ms,
+                     "launches": res["launches"],
+                     **bound_of(*works[name](mode, args))}
+            if "ns_per_iter" in res:
+                entry["ns_per_iter"] = res["ns_per_iter"]
+                entry["net_ns_per_iter"] = res.get(
+                    "net_ns_per_iter", "the tool has no empty mode")
+                entry["sass"] = probe_sass(sass, name, module.MODES.index(mode))
+            else:
+                entry["sass"] = probe_sass(sass, name, None)
+            modes.append(entry)
+        main = next(e for e in modes if e["mode"] == main_mode[name])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "swift3drenderer_tpu_torch/csrc/probes.cu",
+            "replaces": replaces[name], "launches": launches[name],
+            "max_abs_err": errs[name],
+            "tolerance": "bit-equal (checked)",
+            "at": f"{main['mode']}, the tool's shapes and full count",
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "bound_note": "int32 lane ops counted at the fp32 lane rate "
+                          "(an optimistic peak)",
+            "library_ms": None, "modes": modes})
+        for e in modes:
+            print(f"probe {name} {e['mode']}: {e['ms']} ms, ns/iter "
+                  f"{e.get('ns_per_iter', '-')} (net "
+                  f"{e.get('net_ns_per_iter', '-')}), plain {e['plain_ms']} ms, "
+                  f"bound {e['bound_ms']} ms ({e['bound_by']}), launches "
+                  f"{e['launches']}, sass {json.dumps(e['sass'])}", flush=True)
+    return rows
+
+
 def run(parent: str | None = None) -> dict:
     import torch
 
@@ -399,13 +626,14 @@ def run(parent: str | None = None) -> dict:
     # ---- 2. build ----
     phase("2. build")
     t0 = time.perf_counter()
-    log = kernels.build()
+    logs = kernels.build_all()
     build_s = time.perf_counter() - t0
-    print(f"build: csrc/raster.cu {'compiled' if log else 'already built'} "
-          f"in {build_s:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"  {line.strip()}")
+    for source, log in logs.items():
+        print(f"build: csrc/{source} {'compiled' if log else 'already built'} "
+              f"(all sources in {build_s:.2f} s)", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  {line.strip()}")
 
     dev = torch.device("cuda")
     cfg = DEFAULT_CONFIG
@@ -1265,6 +1493,9 @@ def run(parent: str | None = None) -> dict:
             "library_ms": None,
         }
 
+    phase("7. probes")
+    probe_rows = probes_phase(torch)
+
     ids_source = "swift3drenderer_tpu/ops/raster_pallas.py:398"
     kernels_line = [
         kernel_row("raster_flat_nearest",
@@ -1277,7 +1508,7 @@ def run(parent: str | None = None) -> dict:
         kernel_row("raster_segmented_bilinear",
                    "swift3drenderer_tpu/ops/raster_pallas.py:1132",
                    "stress840 bilinear"),
-    ] + [ids_row(k, ids_source) for k in KERNELS]
+    ] + [ids_row(k, ids_source) for k in KERNELS] + probe_rows
     print(json.dumps({"bands": bands, "composites": sharded,
                       "per_range_ms": range_ms, "merge_ms": merge_ms,
                       "ab_parent": ab or "not measured"}))

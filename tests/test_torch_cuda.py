@@ -4,7 +4,8 @@
 PyTorch versions, batched launches against single ones, stitched bands
 against full frames, and the CUDA renderer (single frames and
 ``render_batch``) against the CPU one, on the default scene and on a stress
-field (3,078 slots, the segmented path).
+field (3,078 slots, the segmented path); and the probes of
+``swift3drenderer_tpu_torch.tools`` against their plain versions.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -22,6 +23,10 @@ import swift3drenderer_tpu_torch as port
 from swift3drenderer_tpu_torch.models import SCENES
 from swift3drenderer_tpu_torch.ops import raster as tr
 from swift3drenderer_tpu_torch.renderer import build_setup, scene_to_device
+from swift3drenderer_tpu_torch.tools import fetch_microbench as pfm
+from swift3drenderer_tpu_torch.tools import probe_dynamic_grid as pdg
+from swift3drenderer_tpu_torch.tools import probe_gather2d as pg2
+from swift3drenderer_tpu_torch.tools import probe_packed_fetch as ppf
 
 W, H = 320, 240
 RAGGED = (333, 217)      # neither a multiple of the 32 x 8 tile
@@ -273,3 +278,52 @@ def test_stitched_bands_equal_full_frame_on_cuda(route):
                      for y0, y1 in zip(edges, edges[1:])]
             for got, want in zip((torch.cat(p) for p in zip(*parts)), full):
                 assert torch.equal(got, want), (sampling, n)
+
+
+PROBE_ITERS = (1, 3, 64, 130)   # and each tool's full ITERS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["gather2d", "packed_fetch", "fetch_microbench"])
+def test_fetch_probes_match_plain_on_cuda(probe):
+    """Every mode of each fetch probe's kernel against its plain version on
+    the card, bit for bit, at small counts and the tool's full ITERS; each
+    call is one launch."""
+    need_card()
+    if probe == "gather2d":
+        wrapper, plain, full = pg2.probe_gather2d, pg2.probe_gather2d_plain, pg2.ITERS
+        data = pg2.inputs("cuda")
+        cases = [(m, *data[m], ()) for m in pg2.MODES]
+    elif probe == "packed_fetch":
+        wrapper, plain, full = (ppf.probe_packed_fetch,
+                                ppf.probe_packed_fetch_plain, ppf.ITERS)
+        data = ppf.inputs("cuda")
+        cases = [(m, *data[m], (mix,)) for m in ppf.MODES for mix in (0, 127)]
+    else:
+        wrapper, plain, full = (pfm.fetch_microbench,
+                                pfm.fetch_microbench_plain, pfm.ITERS)
+        data = pfm.inputs("cuda")
+        cases = [(m, *data, ()) for m in pfm.MODES]
+    for mode, a, b, c, extra in cases:
+        for iters in PROBE_ITERS + (full,):
+            before = wrapper.launches
+            got = wrapper(mode, a, b, c, *extra, iters)
+            want = plain(mode, a, b, c, *extra, iters)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            assert torch.equal(got, want), (mode, extra, iters)
+
+
+@pytest.mark.cuda
+def test_dynamic_grid_reads_its_count_on_cuda():
+    """The chunk count lives on the card: each count, clamped to [0, NCMAX],
+    gives the plain version's and the tool's sums."""
+    need_card()
+    tab, hbm = pdg.inputs("cuda")
+    for nc in (-1, 0) + pdg.CHUNKS + (9,):
+        count = torch.tensor(nc, dtype=torch.int32, device="cuda")
+        got = pdg.probe_dynamic_grid(tab, hbm, count)
+        assert torch.equal(got, pdg.probe_dynamic_grid_plain(tab, hbm, count)), nc
+        want = pdg.expected(tab.cpu().numpy(), hbm.cpu().numpy(),
+                            min(max(nc, 0), pdg.NCMAX))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
