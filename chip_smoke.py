@@ -6,7 +6,9 @@
 Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (nvcc, sm_90a; one nvcc for each of
-     raster.cu and probes.cu, started together);
+     raster.cu and probes.cu, and for each measurement build of raster.cu,
+     started together), printing each kernel's registers, shared memory and
+     spills;
   3. hold each kernel against its plain PyTorch version on the card, bit for
      bit: raster_flat_nearest and raster_flat_bilinear on the default
      scene's tables at 1920x1080 and 3840x2160 and the other small scene
@@ -20,7 +22,9 @@ Phases; any failed check raises and the script exits non-zero:
      kernel's own, on the default scene, stress 840 and stress100k at
      1920x1080, the icosahedron bilinear and B = 4 batches; and frames cut
      into 2, 4 and 8 bands (y_offset > 0), stitched, against the full frame,
-     all four kernels;
+     all four kernels; and the segmented kernels' lists at other K and G
+     (G = 1, 4, 16; K = 4) on a ragged frame and on a band, untracked and
+     tracked;
   4. drive the main paths through Renderer(..., device="cuda"), each with the
      launch counts of all four kernels set to 0 just before and read just
      after: the default scene and the 840-object stress field over bench.py's
@@ -43,16 +47,24 @@ Phases; any failed check raises and the script exits non-zero:
   5. time, with CUDA events after a warm-up: each cell's frame (or batch
      call), the front-end stages, its kernel (with the L2 cache cold, as a
      frame finds it) and plain version, beside the least time the card could
-     take for the same work; the segmented binner's entries, broadband slots
-     and sort time for several K; the default scene through either route
+     take for the same work; the segmented binner's tile and super-tile
+     entries, residual broadband slots, sort, binner and kernel times for
+     several K at the default G and several G at the default K; the phase
+     split of the segmented kernels (each launch with its broadband lists,
+     its segments or both emptied) on stress 840 at both sizes and
+     stress100k at 1920x1080; the default scene through either route
      (flat, or segmented with the flat route's slot limit lifted): frames
      (bit-equal), binners and kernels; and the batch sweep B = 1, 2, 4, 8 at
      both sizes: ms per frame, kernels per call and the card's busy share;
      each tracking form against its kernel with the L2 cold, the per-range
      pipeline at N = 1, 2, 4, 8 (the device work of one rank of an N-card
      deployment) and merge_depth_gid; with --parent DIR (a checkout of the
-     parent commit), the four kernels at y0 = 0 against the parent tree's,
-     L2 cold, in turns parent, this, this, parent;
+     parent commit), the four kernels and their tracking forms at y0 = 0
+     against the parent tree's (the segmented ones at the split's cells and
+     at 3840x2160 with this tree's G = 1, every wide slot residual), the
+     split of both trees, L2 cold, and each tree's whole frame (default,
+     stress 840 at both sizes) and segmented binning, in turns parent,
+     this, this, parent;
   6. the share of each flight's wall time the card is busy, each kernel's
      device time per frame in the flight, and the device-to-host copies the
      flight makes (must be none), from torch.profiler; each route's device
@@ -74,6 +86,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -90,6 +103,7 @@ RAGGED_SMALL = (333, 217)  # neither a multiple of the 32 x 8 tile
 RAGGED = (1366, 768)       # 1366 is not a multiple of 32
 STRESS_OBJECTS = 840       # bench.py's stress row: 10,083 triangles
 SEG_K_SWEEP = (2, 4, 8, 16, 32)
+SEG_G_SWEEP = (1, 4, 8, 16)
 CONFIG1 = (640, 480)       # BASELINE config 1: the tetrahedron at B = 8
 BATCH_SWEEP = (1, 2, 4, 8)
 SWEEP_FRAMES = 16          # frames rendered per batch-sweep setting
@@ -338,33 +352,41 @@ def flat_bound(raster, counts, ids, trf, tri, textures, width, height,
                       textures, width, height, c.size * 4, sampling)
 
 
-def segmented_bound(raster, binned, trf, tri, textures, width, height,
+def segmented_bound(raster, binned, trf, tri, rec, textures, width, height,
                     sampling) -> dict:
-    """work_bound of a segmented kernel on one frame: a tile's slots are its
-    segment and the broadband slots whose bbox touches it; the broadband
-    walk over slots that miss the tile is the design's cost, not the
-    work's."""
-    ids, starts, counts, bb, bb_count = binned
+    """work_bound of a segmented kernel on one frame: a tile's slots are
+    those of its lists whose bbox touches it (its segment, and of its
+    super-tile's segment and the residual broadband list); walking the
+    slots that miss the tile is the design's cost, not the work's, and
+    each (tile, slot) pair counts once, whichever list holds it."""
+    ids, starts, counts, bb, bb_count, bb_box = binned
     tiles, slots = raster.segmented_pairs(*binned, tri, width=width,
                                           height=height)
-    ntiles = counts.numel()
+    ntiles = raster.seg_lists(width, height)[0]
     tile_slots = np.bincount(tiles.to("cpu").numpy(), minlength=ntiles)
-    entries, wide = int(counts.sum().item()), int(bb_count[0].item())
+    entries = int(counts[:ntiles].sum().item())
+    super_entries = int(counts[ntiles:].sum().item())
+    wide = int(bb_count[0].item())
     best, win = raster.visibility_segmented_plain(*binned, trf, tri,
                                                   width=width, height=height)
-    out = work_bound(raster, tile_slots, entries + wide, slots.unique(), best,
-                     win, trf, tri, textures, width, height, ntiles * 8 + 4,
-                     sampling)
-    return {**out, "entries": entries, "broadband_slots": wide}
+    out = work_bound(raster, tile_slots, entries + super_entries + wide,
+                     slots.unique(), best, win, trf, tri, textures, width,
+                     height, counts.numel() * 8 + 4, sampling)
+    return {**out, "entries": entries, "super_tile_entries": super_entries,
+            "broadband_slots": wide}
 
 
 def load_parent_raster(parent: str):
     """``ops.raster`` of the port in another checkout (the parent commit's),
     imported as package ``s3d_parent``: its kernels build from its own
-    csrc/ into its own _build/."""
+    csrc/ into its own _build/. A tree from before the slot records, whose
+    segmented kernels take no ``rec``, is wrapped to take this tree's
+    arguments: its ``pack_slot_records`` gives None, which its segmented
+    kernels drop."""
     import importlib
     import importlib.util
     import os
+    import types
 
     pkg = os.path.join(os.path.abspath(parent), "swift3drenderer_tpu_torch")
     spec = importlib.util.spec_from_file_location(
@@ -373,7 +395,106 @@ def load_parent_raster(parent: str):
     module = importlib.util.module_from_spec(spec)
     sys.modules["s3d_parent"] = module
     spec.loader.exec_module(module)
-    return importlib.import_module("s3d_parent.ops.raster")
+    r = importlib.import_module("s3d_parent.ops.raster")
+    if hasattr(r, "pack_slot_records"):
+        return r
+    shim = types.SimpleNamespace(**vars(r))
+    shim.pack_slot_records = lambda setup: None
+    for sampling in ("nearest", "bilinear"):
+        launch = getattr(r, f"raster_segmented_{sampling}")
+        # (ids, starts, counts, bb, bb_count, trf, tri, rec, textures)
+        setattr(shim, f"raster_segmented_{sampling}",
+                lambda *a, _launch=launch, **kw: _launch(*a[:7], *a[8:], **kw))
+    return shim
+
+
+# The phase split of the segmented kernels: stress 840 at both sizes and
+# stress100k at 1080p, each launch timed L2 cold with some of its lists
+# emptied (measurement inputs only; the emptied launches' outputs are thrown
+# away). "broadband" is every list a tile filters by bbox (the parent's
+# frame-wide list; here the super-tile segments and the residual list),
+# "residual" the frame-wide list alone, "segments" the tiles' own segments.
+SPLIT_CELLS = (("stress840", 1920, 1080), ("stress840", 3840, 2160),
+               ("stress100k", 1920, 1080))
+SPLIT_WAYS = ("full", "no_broadband", "no_residual", "no_segments", "neither")
+
+
+def tree_tables(r, route: str, setup, gids=None) -> tuple:
+    """The tables a tree's kernels take after the bins: (trf, tri), and for
+    the segmented kernels (trf, tri, rec)."""
+    trf, tri = r.pack_setup_tables(setup, gids)
+    if route == "segmented":
+        return trf, tri, r.pack_slot_records(setup)
+    return trf, tri
+
+
+def tree_binned(r, route: str, setup, width: int, height: int,
+                y_offset: int = 0, **seg) -> tuple:
+    """A tree's binner outputs for its route's kernels, in their order, over
+    the band [y_offset, y_offset + height); ``seg`` (k, g) goes to the
+    segmented binner."""
+    if route == "flat":
+        return r.bin_triangles(setup, width=width, height=height,
+                               tile_h=r.TILE_H, tile_w=r.TILE_W,
+                               y_offset=y_offset)[::-1]
+    return r.bin_segments(setup, width=width, height=height,
+                          y_offset=y_offset, **seg)
+
+
+def emptied(binned, ntiles: int, way: str):
+    """``bin_segments``' outputs (ids, starts, counts, bb, bb_count, ...)
+    with the lists of ``way`` emptied: counts past the ``ntiles`` tiles are
+    the super-tiles'."""
+    ids, starts, counts, bb, bb_count, *rest = binned
+    counts, bb_count = counts.clone(), bb_count.clone()
+    if way in ("no_broadband", "neither"):
+        counts[..., ntiles:] = 0
+    if way in ("no_broadband", "no_residual", "neither"):
+        bb_count.zero_()
+    if way in ("no_segments", "neither"):
+        counts[..., :ntiles] = 0
+    return (ids, starts, counts, bb, bb_count, *rest)
+
+
+def segmented_split(torch, trees: dict, setups: dict, textures: dict,
+                    bg: int, reps: int = 30) -> list:
+    """Phase split of the segmented kernels of each tree ({"parent": its
+    ops.raster, "this": ours}) on the same setup tables (``setups``:
+    {(scene, width, height): setup}): each way of SPLIT_WAYS timed L2 cold
+    in turns parent, this, this, parent (this alone without a parent); the
+    shares of the full launch that emptying each part saves."""
+    order = (["parent", "this", "this", "parent"] if "parent" in trees
+             else ["this"])
+    tw, th = trees["this"].TILE_W, trees["this"].TILE_H
+    out = []
+    for (scene, width, height), setup in setups.items():
+        ntiles = -(-width // tw) * -(-height // th)
+        kw = dict(width=width, height=height, background=bg)
+        for sampling in ("nearest", "bilinear"):
+            args = {}
+            for who, r in trees.items():
+                binned = tree_binned(r, "segmented", setup, width, height)
+                tables = tree_tables(r, "segmented", setup)
+                args[who] = {way: (*emptied(binned, ntiles, way), *tables,
+                                   textures[scene]) for way in SPLIT_WAYS}
+            spans = {(who, way): [] for who in trees for way in SPLIT_WAYS}
+            for who in order:
+                launch = getattr(trees[who], f"raster_segmented_{sampling}")
+                for way in SPLIT_WAYS:
+                    spans[who, way].append(time_cold_ms(
+                        torch, lambda: launch(*args[who][way], **kw), reps=reps))
+            for who in trees:
+                ms = {way: statistics.median(spans[who, way])
+                      for way in SPLIT_WAYS}
+                res = {"tree": who, "scene": scene, "at": f"{width}x{height}",
+                       "sampling": sampling, "ms": ms,
+                       "broadband_share": 1 - ms["no_broadband"] / ms["full"],
+                       "residual_share": 1 - ms["no_residual"] / ms["full"],
+                       "segments_share": 1 - ms["no_segments"] / ms["full"],
+                       "rest_share": ms["neither"] / ms["full"]}
+                out.append(res)
+                print(f"split: {json.dumps(res)}", flush=True)
+    return out
 
 
 PROBE_ITERS = (1, 3, 64, 130)   # small counts, beside each tool's full ITERS
@@ -665,25 +786,21 @@ def run(parent: str | None = None) -> dict:
         trf, tri = raster.pack_setup_tables(setup)
         return setup, (counts, ids, trf, tri)
 
-    def seg_tables(m, width, height, arr, k=raster.SEG_K):
-        """The setup table, and the segmented kernels' inputs:
-        (ids, starts, counts, bb, bb_count), trf, tri."""
+    def seg_tables(m, width, height, arr):
+        """The setup table, and the segmented kernels' inputs: (ids,
+        starts, counts, bb, bb_count) and (trf, tri, rec)."""
         setup = setup_of(m, width, height, arr)
-        trf, tri = raster.pack_setup_tables(setup)
-        return setup, raster.bin_segments(setup, width=width, height=height,
-                                          k=k), trf, tri
+        return (setup, raster.bin_segments(setup, width=width, height=height),
+                tables_for("segmented", setup))
 
     def kernel_of(route, sampling):
         return f"raster_{route}_{sampling}"
 
     def binned_for(route, setup, width, height, y_offset=0):
-        """The route's binner outputs, in its kernel's argument order."""
-        if route == "flat":
-            return raster.bin_triangles(
-                setup, width=width, height=height, tile_h=raster.TILE_H,
-                tile_w=raster.TILE_W, y_offset=y_offset)[::-1]
-        return raster.bin_segments(setup, width=width, height=height,
-                                   y_offset=y_offset)
+        return tree_binned(raster, route, setup, width, height, y_offset)
+
+    def tables_for(route, setup, gids=None):
+        return tree_tables(raster, route, setup, gids)
 
     def gids_for(setup):
         s = setup["live"].shape[-1]
@@ -717,7 +834,9 @@ def run(parent: str | None = None) -> dict:
                               f"{width}x{height} pose {pose}")
                 # The segmented kernel on the same table: the flat kernel's frame.
                 binned = raster.bin_segments(setup, width=width, height=height)
-                ps, ds = getattr(raster, seg)(*binned, *args[2:], tex, **kw)
+                ps, ds = getattr(raster, seg)(*binned, *args[2:],
+                                              raster.pack_slot_records(setup),
+                                              tex, **kw)
                 what = (f"{seg} vs {flat} default {width}x{height} pose {pose}")
                 report(errs[seg], ("default", width, height, pose),
                        compare(ps, ds, pk, dk, what), what)
@@ -748,14 +867,46 @@ def run(parent: str | None = None) -> dict:
                   ("stress100k", *RESOLUTIONS[0], 0, ("nearest", "bilinear"))]
     arrays["regular_floor"] = scene_to_device(SCENES["regular_floor"](seed=0), dev)
     for name, width, height, pose, samplings in seg_cases:
-        _, binned, trf, tri = seg_tables(poses[pose], width, height, arrays[name])
+        _, binned, tables = seg_tables(poses[pose], width, height, arrays[name])
         kw = dict(width=width, height=height, background=bg)
+        ntiles = raster.seg_lists(width, height)[0]
         for sampling in samplings:
             hold(kernel_of("segmented", sampling), (name, width, height, pose),
-                 (*binned, trf, tri), arrays[name]["textures"], kw,
-                 f"{name} {width}x{height} pose {pose} (S {trf.shape[1]}, "
-                 f"entries {int(binned[2].sum())}, broadband "
+                 (*binned, *tables), arrays[name]["textures"], kw,
+                 f"{name} {width}x{height} pose {pose} (S {tables[0].shape[1]}, "
+                 f"entries {int(binned[2][:ntiles].sum())}, super-tile entries "
+                 f"{int(binned[2][ntiles:].sum())}, residual broadband "
                  f"{int(binned[4][0])})")
+
+    # The segmented kernels' lists at other K and G (G = 1 lists no slot by
+    # super-tile), on a ragged frame and on a band at y0 > 0, untracked and
+    # tracked, against their plain versions.
+    for (width, height), y0, k, g in (
+            (RAGGED, 0, raster.SEG_K, 1), (RAGGED, 0, raster.SEG_K, 4),
+            (RAGGED, 0, raster.SEG_K, 16), (RAGGED, 0, 4, raster.SEG_G),
+            (RESOLUTIONS[0], 270, raster.SEG_K, raster.SEG_G),
+            (RESOLUTIONS[0], 270, 4, 2)):
+        setup = setup_of(poses[0], width, height, arrays["stress840"])
+        band = height - 2 * y0
+        binned = raster.bin_segments(setup, width=width, height=band, k=k,
+                                     g=g, y_offset=y0)
+        kw = dict(width=width, height=band, background=bg, g=g, y_offset=y0)
+        for sampling in ("nearest", "bilinear"):
+            name = kernel_of("segmented", sampling)
+            for track in (False, True):
+                args = (*binned, *tables_for("segmented", setup,
+                                             gids_for(setup) if track else None),
+                        arrays["stress840"]["textures"])
+                got = getattr(raster, name)(*args, track_ids=track, **kw)
+                want = getattr(raster, f"{name}_plain")(*args, track_ids=track,
+                                                        **kw)
+                what = (f"{name} vs plain stress840 {width}x{band} at y0 {y0}, "
+                        f"K {k}, G {g}{', tracked' if track else ''}")
+                res = compare(*got[:2], *want[:2], what)
+                check(not track or torch.equal(got[2], want[2]),
+                      f"{what}: gid planes differ")
+                report(errs[f"{name}_ids" if track else name],
+                       ("lists", width, band, y0, k, g), res, what)
 
     # Each kernel's batched launch (B = 4: the flight's first four poses at
     # 1920x1080) against its plain version and against its launches frame
@@ -765,7 +916,7 @@ def run(parent: str | None = None) -> dict:
     for route, name in (("flat", "default"), ("segmented", "stress840")):
         tables = flat_tables if route == "flat" else seg_tables
         _, *args = tables(np.stack(poses[:4]), width, height, arrays[name])
-        args = args[0] if route == "flat" else (*args[0], *args[1:])
+        args = args[0] if route == "flat" else (*args[0], *args[1])
         tex = arrays[name]["textures"]
         for sampling in ("nearest", "bilinear"):
             kernel = kernel_of(route, sampling)
@@ -783,8 +934,8 @@ def run(parent: str | None = None) -> dict:
     # depth against the kernel's own launch on the same inputs.
     def hold_ids(route, sampling, setup, width, height, tex, what):
         name = kernel_of(route, sampling)
-        trf, tri = raster.pack_setup_tables(setup, gids_for(setup))
-        args = (*binned_for(route, setup, width, height), trf, tri, tex)
+        args = (*binned_for(route, setup, width, height),
+                *tables_for(route, setup, gids_for(setup)), tex)
         kw = dict(width=width, height=height, background=bg)
         pk, dk, gk = getattr(raster, name)(*args, track_ids=True, **kw)
         pp, dp, gp = getattr(raster, f"{name}_plain")(*args, track_ids=True,
@@ -822,16 +973,16 @@ def run(parent: str | None = None) -> dict:
     bands = []
     for route, name in (("flat", "default"), ("segmented", "stress840")):
         setup = setup_of(poses[0], width, height, arrays[name])
-        trf, tri = raster.pack_setup_tables(setup)
+        tables = tables_for(route, setup)
         tex = arrays[name]["textures"]
         for sampling in ("nearest", "bilinear"):
             kernel = getattr(raster, kernel_of(route, sampling))
-            full = kernel(*binned_for(route, setup, width, height), trf, tri,
+            full = kernel(*binned_for(route, setup, width, height), *tables,
                           tex, width=width, height=height, background=bg)
             for n in BANDS:
                 edges = [height * i // n for i in range(n + 1)]
                 parts = [kernel(*binned_for(route, setup, width, y1 - y0, y0),
-                                trf, tri, tex, width=width, height=y1 - y0,
+                                *tables, tex, width=width, height=y1 - y0,
                                 background=bg, y_offset=y0)
                          for y0, y1 in zip(edges, edges[1:])]
                 what = (f"{kernel_of(route, sampling)} {name} {width}x{height}"
@@ -1129,12 +1280,14 @@ def run(parent: str | None = None) -> dict:
             bounds = [flat_bound(raster, *frame_of(args, i), tex, width, height,
                                  sampling) for i in frames]
         else:
-            setup, binned, trf, tri = seg_tables(first, width, height, arr)
+            setup, binned, tables = seg_tables(first, width, height, arr)
             stage_ms["bin_segments"] = time_ms(torch, lambda: raster.bin_segments(
                 setup, width=width, height=height), 20)
-            args = (*binned, trf, tri)
+            stage_ms["pack_slot_records"] = time_ms(
+                torch, lambda: raster.pack_slot_records(setup), 20)
+            args = (*binned, *tables)
             bounds = [segmented_bound(raster, frame_of(binned, i),
-                                      *frame_of((trf, tri), i), tex, width,
+                                      *frame_of(tables, i), tex, width,
                                       height, sampling) for i in frames]
         stage_ms["pack_setup_tables"] = time_ms(
             torch, lambda: raster.pack_setup_tables(setup), 20)
@@ -1147,7 +1300,7 @@ def run(parent: str | None = None) -> dict:
         launch = getattr(raster, kernel)
         plain = getattr(raster, f"{kernel}_plain")
         row = {"scene": c["name"], "at": f"{width}x{height}", "kernel": kernel,
-               "batch": b or 1, "slots": int(args[-1].shape[-1]),
+               "batch": b or 1, "slots": int(setup["live"].shape[-1]),
                "calls": len(calls),
                "frame_ms_median": statistics.median(per_call) / (b or 1),
                "frame_ms_min": min(per_call) / (b or 1),
@@ -1162,26 +1315,38 @@ def run(parent: str | None = None) -> dict:
         print(f"timing {c['name']} {width}x{height}: {json.dumps(row)}",
               flush=True)
 
-    # The segmented binner's K: entries, broadband slots, the sort and the
-    # kernel at pose 0 (the 32 x 8 tile is fixed by the kernel).
+    # The segmented binner's K at the default G, and G at the default K:
+    # tile entries, super-tile entries, the residual broadband list, the
+    # sort, the binner and the kernel at pose 0 (the 32 x 8 tile is fixed
+    # by the kernel; G = 1 lists no slot by super-tile, as the parent).
+    seg_sweep = []
     for c in cells[2:5]:
         (width, height), arr = c["size"], renderers[c["renderer"]].dev
         setup = setup_of(c["ms"][0], width, height, arr)
-        trf, tri = raster.pack_setup_tables(setup)
-        kw = dict(width=width, height=height, background=bg)
-        for k in SEG_K_SWEEP:
-            keys, big = raster.segment_keys(setup, width=width, height=height, k=k)
-            binned = raster.bin_segments(setup, width=width, height=height, k=k)
-            res = {"k": k, "entries": int(binned[2].sum()),
+        tables = tables_for("segmented", setup)
+        for k, g in ([(k, raster.SEG_G) for k in SEG_K_SWEEP]
+                     + [(raster.SEG_K, g) for g in SEG_G_SWEEP
+                        if g != raster.SEG_G]):
+            kw = dict(width=width, height=height, background=bg, g=g)
+            keys, big = raster.segment_keys(setup, width=width, height=height,
+                                            k=k, g=g)
+            binned = raster.bin_segments(setup, width=width, height=height,
+                                         k=k, g=g)
+            ntiles = raster.seg_lists(width, height, g)[0]
+            res = {"scene": c["name"], "at": f"{width}x{height}", "k": k,
+                   "g": g, "entries": int(binned[2][:ntiles].sum()),
+                   "super_tile_entries": int(binned[2][ntiles:].sum()),
                    "broadband_slots": int(binned[4][0]),
                    "sort_us": 1e3 * time_ms(
                        torch, lambda: torch.sort(keys, stable=True), 10,
                        windows=3),
                    "bin_segments_ms": time_ms(torch, lambda: raster.bin_segments(
-                       setup, width=width, height=height, k=k), 10, windows=3),
+                       setup, width=width, height=height, k=k, g=g), 10,
+                       windows=3),
                    "kernel_ms_cold": time_cold_ms(
                        torch, lambda: raster.raster_segmented_nearest(
-                           *binned, trf, tri, arr["textures"], **kw), reps=20)}
+                           *binned, *tables, arr["textures"], **kw), reps=20)}
+            seg_sweep.append(res)
             print(f"seg_k {c['name']} {width}x{height}: {json.dumps(res)}",
                   flush=True)
 
@@ -1228,7 +1393,8 @@ def run(parent: str | None = None) -> dict:
                        counts, ids, trf, tri, tex, **kw)),
                "segmented_kernel_ms": time_cold_ms(
                    torch, lambda: raster.raster_segmented_nearest(
-                       *binned, trf, tri, tex, **kw)),
+                       *binned, trf, tri, raster.pack_slot_records(setup), tex,
+                       **kw)),
                "entries": int(binned[2].sum()),
                "broadband_slots": int(binned[4][0])}
         routes[(width, height)] = res
@@ -1268,9 +1434,8 @@ def run(parent: str | None = None) -> dict:
         kernel = kernel_of(route, sampling)
         arr = composites[name][0]
         setup = setup_of(poses[0], width, height, arr)
-        trf, tri = raster.pack_setup_tables(setup, gids_for(setup))
-        args = (*binned_for(route, setup, width, height), trf, tri,
-                arr["textures"])
+        args = (*binned_for(route, setup, width, height),
+                *tables_for(route, setup, gids_for(setup)), arr["textures"])
         kw = dict(width=width, height=height, background=bg)
         launch = getattr(raster, kernel)
         spans = {False: [], True: []}
@@ -1315,35 +1480,103 @@ def run(parent: str | None = None) -> dict:
                        20)
     print(f"merge_depth_gid {width}x{height}: {merge_ms} ms", flush=True)
 
-    # With --parent DIR: the four kernels at y0 = 0 against the parent
-    # tree's, on the same inputs, L2 cold, in turns parent, this, this,
-    # parent (the same card in one call).
-    ab = []
+    # With --parent DIR: the four kernels and their tracking forms at y0 = 0
+    # against the parent tree's, each tree's kernel on its own binner's and
+    # packer's outputs for the same setup table, L2 cold, in turns parent,
+    # this, this, parent (the same card in one call): the flat kernels at
+    # their 1080p main shapes, the segmented ones at the split's cells, and
+    # stress 840 at 4K with this tree's G = 1: every wide slot then lies on
+    # the residual broadband list, as in a scene whose wide slots each
+    # cover more than K super-tiles.
+    ab, frame_ab = [], []
+    trees = {"this": raster}
     if parent:
-        praster = load_parent_raster(parent)
-        for name, route, sampling in main_shapes:
+        trees["parent"] = load_parent_raster(parent)
+        ab_cases = [("default", "flat", "nearest", *RESOLUTIONS[0], None),
+                    ("icosahedron bilinear", "flat", "bilinear",
+                     *RESOLUTIONS[0], None)]
+        ab_cases += [(name if sampling == "nearest" else f"{name} bilinear",
+                      "segmented", sampling, w, h, g)
+                     for name, w, h, g in [(*c, None) for c in SPLIT_CELLS]
+                     + [("stress840", *RESOLUTIONS[1], 1)]
+                     for sampling in ("nearest", "bilinear")]
+        for name, route, sampling, w, h, g in ab_cases:
             kernel = kernel_of(route, sampling)
-            arr = composites[name][0]
-            setup = setup_of(poses[0], width, height, arr)
-            trf, tri = raster.pack_setup_tables(setup)
-            args = (*binned_for(route, setup, width, height), trf, tri,
-                    arr["textures"])
-            kw = dict(width=width, height=height, background=bg)
-            fns = {"parent": getattr(praster, kernel),
-                   "this": getattr(raster, kernel)}
-            compare(*fns["this"](*args, **kw), *fns["parent"](*args, **kw),
-                    f"{kernel} {name}: this tree vs the parent's")
-            spans = {"parent": [], "this": []}
+            arr = composites.get(name, (arrays[name.split()[0]],))[0]
+            setup = setup_of(poses[0], w, h, arr)
+            kw = dict(width=w, height=h, background=bg)
+            this_kw = {} if g is None else {"g": g}
+            for track in (False, True):
+                gids = gids_for(setup) if track else None
+                args = {who: (*tree_binned(r, route, setup, w, h,
+                                           **(this_kw if who == "this" else {})),
+                              *tree_tables(r, route, setup, gids),
+                              arr["textures"]) for who, r in trees.items()}
+                fns = {"parent": getattr(trees["parent"], kernel),
+                       "this": functools.partial(getattr(raster, kernel),
+                                                 **this_kw)}
+                got = {who: fns[who](*args[who], track_ids=track, **kw)
+                       for who in trees}
+                compare(*got["this"][:2], *got["parent"][:2],
+                        f"{kernel} {name} {w}x{h}: this tree vs the parent's")
+                check(not track or torch.equal(got["this"][2], got["parent"][2]),
+                      f"{kernel} {name}: gid planes differ from the parent's")
+                spans = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent"):
+                    spans[who].append(time_cold_ms(
+                        torch, lambda: fns[who](*args[who], track_ids=track,
+                                                **kw), reps=50))
+                res = {"kernel": kernel + ("_ids" if track else ""),
+                       "scene": name, "at": f"{w}x{h}", "this_g": g,
+                       "parent_ms": statistics.median(spans["parent"]),
+                       "this_ms": statistics.median(spans["this"]),
+                       "spans": spans}
+                res["ratio"] = res["this_ms"] / res["parent_ms"]
+                ab.append(res)
+                print(f"A/B vs parent: {json.dumps(res)}", flush=True)
+
+        # The whole frame against the parent tree's Renderer on the same
+        # scene, the flight in turns parent, this, this, parent; the default
+        # scene (the flat route, the same code in both trees) shows what the
+        # host's noise alone moves. And the segmented front-end's stages:
+        # the parent's bin_segments against this tree's with
+        # pack_slot_records, in the same turns.
+        import importlib
+        parent_renderer = importlib.import_module("s3d_parent.renderer").Renderer
+        for name, (w, h) in (("default", RESOLUTIONS[0]),
+                             ("stress840", RESOLUTIONS[0]),
+                             ("stress840", RESOLUTIONS[1])):
+            pair = {"parent": parent_renderer(scenes[name], device="cuda"),
+                    "this": renderers[name]}
+            setup = setup_of(poses[0], w, h, arrays[name])
+            front = {"parent": lambda: trees["parent"].bin_segments(
+                         setup, width=w, height=h),
+                     "this": lambda: (raster.bin_segments(
+                         setup, width=w, height=h),
+                         raster.pack_slot_records(setup))}
+            spans = {who: [] for who in pair}
+            stages = {who: [] for who in pair}
             for who in ("parent", "this", "this", "parent"):
-                spans[who].append(time_cold_ms(
-                    torch, lambda: fns[who](*args, **kw), reps=50))
-            res = {"kernel": kernel, "scene": name, "at": f"{width}x{height}",
-                   "parent_ms": statistics.median(spans["parent"]),
-                   "this_ms": statistics.median(spans["this"]),
-                   "spans": spans}
-            res["ratio"] = res["this_ms"] / res["parent_ms"]
-            ab.append(res)
-            print(f"A/B vs parent: {json.dumps(res)}", flush=True)
+                spans[who] += frame_times(pair[who], poses, w, h)
+                stages[who].append(time_ms(torch, front[who], 20))
+            res = {"scene": name, "at": f"{w}x{h}",
+                   **{f"{who}_frame_ms_median": statistics.median(spans[who])
+                      for who in pair},
+                   "parent_bin_segments_ms": statistics.median(stages["parent"]),
+                   "this_bin_segments_and_records_ms": statistics.median(
+                       stages["this"])}
+            res["frame_ratio"] = (res["this_frame_ms_median"]
+                                  / res["parent_frame_ms_median"])
+            frame_ab.append(res)
+            print(f"frame A/B vs parent: {json.dumps(res)}", flush=True)
+
+    # The phase split of the segmented kernels (this tree, and the parent's
+    # in turns with it when given).
+    split_setups = {(name, w, h): setup_of(poses[0], w, h, arrays[name])
+                    for name, w, h in SPLIT_CELLS}
+    split_textures = {name: arrays[name]["textures"]
+                      for name, _, _ in SPLIT_CELLS}
+    split = segmented_split(torch, trees, split_setups, split_textures, bg)
 
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
@@ -1462,7 +1695,8 @@ def run(parent: str | None = None) -> dict:
                 "scene", "at", "batch", "ms", "ms_in_flight", "plain_ms",
                 "bound_ms", "bound_by", "tile_bound_ms", "frame_ms_median",
                 "device_busy_share", "device_kernels_per_frame",
-                "device_kernels_per_call", "entries", "broadband_slots")}
+                "device_kernels_per_call", "entries", "super_tile_entries",
+                "broadband_slots")}
                 for r in rows_k],
         }
 
@@ -1491,6 +1725,9 @@ def run(parent: str | None = None) -> dict:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
+            "parent_ms_same_call": next((x["parent_ms"] for x in ab
+                                         if x["kernel"] == f"{kernel}_ids"),
+                                        "not measured"),
         }
 
     phase("7. probes")
@@ -1511,7 +1748,10 @@ def run(parent: str | None = None) -> dict:
     ] + [ids_row(k, ids_source) for k in KERNELS] + probe_rows
     print(json.dumps({"bands": bands, "composites": sharded,
                       "per_range_ms": range_ms, "merge_ms": merge_ms,
-                      "ab_parent": ab or "not measured"}))
+                      "ab_parent": ab or "not measured",
+                      "frame_ab_parent": frame_ab or "not measured",
+                      "split": split,
+                      "seg_sweep": seg_sweep}))
     phase("done")
     print(card)
     print(json.dumps({"kernels": kernels_line}))

@@ -8,7 +8,8 @@
 //  - raster_segmented_{nearest,bilinear}, its segmented form: vis_entry
 //    (:402-490) over the shared broadband list and the tile's segment of one
 //    sorted (tile, slot) entry array (bin_segments, :150), with the
-//    order-independent depth-tie rule;
+//    order-independent depth-tie rule; here the sort also lists slots per
+//    super-tile of G x G tiles, and the broadband list keeps only the rest;
 // and, shared by all, shade_body/_shade_slot and color_entry/tex_entry over
 // shade_base/color_pack/tex_coord_planes (:519-798) and _fetch_phase with its
 // final pack (:803-1362): the nearest fetch, or the bilinear one
@@ -26,13 +27,25 @@
 // (blockIdx.z = frame; TILE_W x TILE_H in ops/raster.py, which bins for it),
 // one thread per pixel. A block reads its frame's columns of the batch's
 // tables and writes its frame's output planes; otherwise the body is the
-// single-frame body. The block stages its
-// slot lists in shared memory, kThreads entries at a time. The slot tables
-// stay in global memory and are read through L1/L2: all threads of a block
-// read the same slot's words in the same iteration, so each read is one
-// broadcast. The segmented kernel stages the broadband list with each slot's
-// bbox tested against the tile once per block, so a tile walks only the
-// broadband slots that touch it, as the flat binner would have listed them.
+// single-frame body. The flat kernel stages its slot list in shared memory,
+// kThreads entries at a time, and reads the slot tables through L1/L2: all
+// threads of a block read the same slot's words in the same iteration, so
+// each read is one broadcast. The segmented kernel walks three lists as one
+// run: its tile's segment, its super-tile's segment (G x G tiles, the slots
+// too wide for per-tile entries) and the residual broadband list (the
+// widest). For each chunk of kChunk listed slots it copies their 64-byte
+// visibility records (ops/raster.py::pack_slot_records: edge, 1/z and bbox
+// words, slot-major) into shared memory with cp.async, 16 bytes a thread
+// and four threads a record, double buffered: chunk c + 1 is in flight
+// while the block works on chunk c. A residual list longer than a chunk,
+// which a tile mostly misses, is first filtered by bbox, one slot a thread
+// (bin_segments lists the residual slots' bboxes in the list's order), into
+// a list of hits in shared memory; only the hits' records are copied (past
+// kHits hits, the rest of the list is copied whole). Each staged record
+// whose bbox misses the tile, or one of whose edge functions is negative
+// over the whole tile (tested at the corner its signs pick), is dropped
+// once for the block, the rest compacted by ballot, and a visit reads four
+// shared-memory broadcasts instead of 16 table words.
 // After visibility each thread shades its own winner and reads its texel
 // with one load from the atlas, or its four bilinear taps with four. The TPU
 // kernel's 8-row strips, 8-row atlas-block unrolls, row-constant path,
@@ -44,11 +57,13 @@
 // Winners do not depend on the tiling: each pixel tests every live slot whose
 // bbox touches its tile, and the exact bbox test is part of coverage
 // (raster_pallas.py:384-388). A slot left out of the tile's lists fails that
-// test anyway, so winners match the TPU kernel's 120- or 216-row tiles. The
+// test anyway, so winners match the TPU kernel's 120- or 216-row tiles; a
+// record the segmented kernel's tile test drops covers no pixel of the tile
+// in the visit's own rounding, so dropping it changes nothing either. The
 // flat kernel walks ascending slots with a strict '>', so the earlier slot
-// keeps a depth tie (render.swift:323-325); the segmented kernel's two lists
-// interleave in slot order, so it states the same rule without the order:
-// the greater 1/z wins, and at equal 1/z > 0 the smaller slot. The TPU
+// keeps a depth tie (render.swift:323-325); the segmented kernel's three
+// lists interleave in slot order, so it states the same rule without the
+// order: the greater 1/z wins, and at equal 1/z > 0 the smaller slot. The TPU
 // kernel's segmented tracking form breaks that tie on the smaller gid
 // instead; the two agree because every caller's gids ascend with slot order
 // among a frame's live slots (ops/raster.py checks it in the plain version).
@@ -58,9 +73,11 @@
 // pixels) and does ~17 flops for each slot whose bbox holds the pixel, plus
 // ~100 (bilinear ~135) for its winner's shading; at the main path's shapes
 // the bytes bound (chip_smoke.py computes it from the run's own tables and
-// texel fetches).
-// These first versions favour being right: tables are read from L1/L2 on
-// every slot, and nothing is staged ahead.
+// texel fetches). The flat kernels favour being right: their tables are read
+// from L1/L2 on every slot, and nothing is staged ahead. What holds the
+// segmented kernel near its measured time is each block's chain of dependent
+// loads (list bounds, slot ids, records, the winner's table columns, its
+// texel) and the fixed cost of a block, not bytes (PERF.md).
 //
 // Numerics, to stay bit-equal with the plain PyTorch versions:
 //  - built with --fmad=false: every multiply and add rounds separately, in the
@@ -90,6 +107,31 @@ constexpr int kXMIN = 0, kXMAX = 1, kYMIN = 2, kYMAX = 3, kTEXBASE = 4,
 constexpr int kAtlasEdge = 512;
 // The pixel tile; ops/raster.py's TILE_W, TILE_H bin for the same one.
 constexpr int kTileW = 32, kTileH = 8, kThreads = kTileW * kTileH;
+// A slot record (ops/raster.py::pack_slot_records): the f32 rows kW00 ..
+// kRVZ + 2, then the i32 rows kXMIN .. kYMAX bit-cast; 64 bytes, copied as
+// four 16-byte pieces.
+constexpr int kRecPieces = 4;
+
+// Asynchronous 16-byte copies from global to shared memory (sm_80 and up):
+// the counterpart of the TPU kernel's make_async_copy, one commit group per
+// chunk, waited on by count.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most ``pending`` (0 or 1) commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
 
 // NaN tests below are written x != x: no fast math, so they hold.
 __device__ __forceinline__ int trunc_i32(float x) { return __float2int_rz(x); }
@@ -317,84 +359,185 @@ raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
       i32_frame + win, px, py, row, width, height, background, pix, depth, gid);
 }
 
+// Slots staged per chunk of the segmented kernel's lists: 2 x 128 records
+// (16 KB) of shared memory. And the blocks a SM it is built for, which caps
+// it at 40 registers (uncapped, its inlined lambdas take twice that; chunks
+// of 64 or 256, or 8 blocks a SM at 32 registers, ran no faster: PERF.md).
+constexpr int kChunk = 128;
+constexpr int kSegmentedBlocksPerSM = 6;
+// Residual broadband slots a block holds after filtering them by bbox.
+constexpr int kHits = 1024;
+
 template <bool kBilinear, bool kTrackIds>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSegmentedBlocksPerSM)
 raster_segmented_kernel(const int* __restrict__ ids,
                         const int* __restrict__ starts,
                         const int* __restrict__ counts,
                         const int* __restrict__ bb,
                         const int* __restrict__ bb_count,
+                        const int4* __restrict__ bb_box,
                         const float* __restrict__ trf,
                         const int* __restrict__ tri,
+                        const float4* __restrict__ rec,
                         const int* __restrict__ atlas, int num_textures,
                         int* __restrict__ pix, float* __restrict__ depth,
-                        int* __restrict__ gid, int S, int entries, int width,
-                        int height, int y0, int background) {
+                        int* __restrict__ gid, int S, int entries, int g,
+                        int width, int height, int y0, int background) {
   constexpr int kWarps = kThreads / 32;
-  __shared__ int list[kThreads];
+  __shared__ float4 recs[2][kChunk][kRecPieces];  // double buffered
+  __shared__ int slots[2][kChunk];
+  __shared__ int order[kChunk];
+  __shared__ int hits[kHits];
   __shared__ int warp_kept[kWarps];
   S3D_FRAME_OFFSETS();
   const size_t frame = blockIdx.z;
   ids += frame * entries;
   bb += frame * S;
-  const int ntiles = gridDim.x * gridDim.y;
+  bb_box += frame * S;
+  rec += frame * S * kRecPieces;
+  const int ntx = gridDim.x, ntiles = ntx * gridDim.y;
+  const int nsx = (ntx + g - 1) / g;
+  // The frame's lists: its tiles', then its super-tiles'.
+  const size_t lists = frame * (ntiles + nsx * ((gridDim.y + g - 1) / g));
+  const size_t tile = lists + blockIdx.y * ntx + blockIdx.x;
+  const size_t super_tile =
+      lists + ntiles + (blockIdx.y / g) * nsx + blockIdx.x / g;
   const int lane = threadIdx.y * kTileW + threadIdx.x;
-  const int warp = lane >> 5;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t frame_tile = frame * ntiles + tile;
-  // The tile's first pixel column and framebuffer row.
+  // The tile's first and last pixel column and framebuffer row.
   const int tx0 = blockIdx.x * kTileW, ty0 = y0 + blockIdx.y * kTileH;
+  const int tx1 = tx0 + kTileW - 1, ty1 = ty0 + kTileH - 1;
   const int px = tx0 + threadIdx.x;
   const int row = blockIdx.y * kTileH + threadIdx.y;
   const int py = y0 + row;
+  const int a0 = starts[tile], a1 = starts[super_tile];
+  const int c0 = counts[tile], c1 = c0 + counts[super_tile];
+  const int wide = bb_count[frame];
+
+  // Compaction by ballot over the block: returns how many threads keep, and
+  // sets ``at`` to this thread's place among them. The caller syncs before
+  // the next compaction (warp_kept is reused).
+  auto compact = [&](bool keep, int& at) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+    if (lane % 32 == 0) warp_kept[lane / 32] = __popc(ballot);
+    __syncthreads();
+    int kept = 0;
+    at = __popc(ballot & ((1u << (lane % 32)) - 1u));
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < lane / 32 ? warp_kept[w] : 0;
+      kept += warp_kept[w];
+    }
+    return kept;
+  };
+
+  // Whether a staged record may cover a pixel of the tile: its bbox meets
+  // the tile, and each edge function is >= 0 somewhere in it. Each edge
+  // function, rounded as the visit rounds it, is monotone in px and in py,
+  // so its largest value over the tile is at the corner its signs pick: a
+  // record failing this covers no pixel here (a NaN keeps it).
+  const float tx0f = static_cast<float>(tx0), tx1f = static_cast<float>(tx1);
+  const float ty0f = static_cast<float>(ty0), ty1f = static_cast<float>(ty1);
+  auto meets = [&](int4 box) {
+    return box.x <= tx1 && box.y >= tx0 && box.z <= ty1 && box.w >= ty0;
+  };
+  auto may_cover = [&](const float4* r) {
+    const float4 a = r[0], b = r[1], c = r[2];
+    auto edge_misses = [&](float w00, float dx, float dy) {
+      return (w00 + (dx >= 0.0f ? tx1f : tx0f) * dx)
+                 + (dy >= 0.0f ? ty1f : ty0f) * dy < 0.0f;
+    };
+    return meets(reinterpret_cast<const int4*>(r)[3])
+           && !edge_misses(a.x, a.w, b.z) && !edge_misses(a.y, b.x, b.w)
+           && !edge_misses(a.z, b.y, c.x);
+  };
+
+  // The order-independent form of the strict '>' over ascending slots. The
+  // record r: r[0] = (w00.x, w00.y, w00.z, dx.x), r[1] = (dx.y, dx.z, dy.x,
+  // dy.y), r[2] = (dy.z, rvz.x, rvz.y, rvz.z), r[3] = the bbox; each edge
+  // function rounds as (w00 + px*dx) + py*dy, as the plain version does.
   const float pxf = static_cast<float>(px);
   const float pyf = static_cast<float>(py);
   float best = 0.0f;
   int win = -1;
-  // The order-independent form of the strict '>' over ascending slots.
-  auto visit = [&](int s) {
-    const float ooz = slot_ooz(trf, tri, S, f32_frame + s, i32_frame + s, px,
-                               py, pxf, pyf);
+  auto visit = [&](int s, const float4* r) {
+    const float4 a = r[0], b = r[1], c = r[2];
+    const int4 box = reinterpret_cast<const int4*>(r)[3];
+    const float w0 = a.x + pxf * a.w + pyf * b.z;
+    const float w1 = a.y + pxf * b.x + pyf * b.w;
+    const float w2 = a.z + pxf * b.y + pyf * c.x;
+    const bool cover = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && px >= box.x
+                       && px <= box.y && py >= box.z && py <= box.w;
+    const float ooz = cover ? w0 * c.y + w1 * c.z + w2 * c.w : 0.0f;
     if (ooz > best || (ooz == best && ooz > 0.0f && s < win)) {
       best = ooz;
       win = s;
     }
   };
 
-  // ---- phase 1a: the broadband slots whose bbox touches this tile ----
-  const int nb = bb_count[frame];
-  for (int base = 0; base < nb; base += kThreads) {
-    int s = 0;
-    bool keep = false;
-    if (base + lane < nb) {
-      s = bb[base + lane];
-      const int c = i32_frame + s;
-      keep = tri[kXMIN * S + c] < tx0 + kTileW && tri[kXMAX * S + c] >= tx0
-             && tri[kYMIN * S + c] < ty0 + kTileH && tri[kYMAX * S + c] >= ty0;
-    }
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    __syncthreads();  // the previous chunk's list is consumed
-    if ((lane & 31) == 0) warp_kept[warp] = __popc(ballot);
-    __syncthreads();
-    int at = 0, m = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < warp ? warp_kept[w] : 0;
-      m += warp_kept[w];
-    }
-    if (keep) list[at + __popc(ballot & ((1u << (lane & 31)) - 1u))] = s;
-    __syncthreads();
-    for (int j = 0; j < m; ++j) visit(list[j]);
+  // ---- phase 1a: filter a long residual broadband list ----
+  // A list longer than one chunk is filtered into hits[], a window of
+  // kThreads slots at a time (one slot a thread, its bbox from bb_box, in
+  // the list's order, so the load needs no slot id), while a window still
+  // fits; [r, wide) stays unfiltered. A shorter list is walked unfiltered
+  // (r = 0): filtering it would cost more than copying it.
+  int r = 0, nh = 0;
+  if (wide > kChunk) {
+    do {
+      const int i = r + lane;
+      const bool hit = i < wide && meets(bb_box[i]);
+      int at;
+      const int kept = compact(hit, at);
+      if (hit) hits[nh + at] = bb[i];
+      __syncthreads();  // hits complete; warp_kept free again
+      nh += kept;
+      r += kThreads;
+    } while (r < wide && nh <= kHits - kThreads);
+    r = min(r, wide);
   }
 
-  // ---- phase 1b: the tile's segment of the sorted entries ----
-  const int n = counts[frame_tile];
-  const int* seg = ids + starts[frame_tile];
-  for (int base = 0; base < n; base += kThreads) {
-    const int m = min(kThreads, n - base);
-    __syncthreads();
-    if (lane < m) list[lane] = seg[base + lane];
-    __syncthreads();
-    for (int j = 0; j < m; ++j) visit(list[j]);
+  // ---- phase 1b: stage chunk c while culling and visiting chunk c - 1 ----
+  // One run of n slots, kChunk at a time: [0, e0) the tile's segment (ids
+  // from a0), [e0, e1) its super-tile's (ids from a1), [e1, e2) the hits,
+  // [e2, n) the residual list's unfiltered rest (from r).
+  const int e0 = c0, e1 = c1, e2 = e1 + nh, n = e2 + (wide - r);
+  const int chunks = (n + kChunk - 1) / kChunk;
+  // Stage chunk c in buffer ``buf``: its slots in slots[buf] and their
+  // records copied to recs[buf] asynchronously, 16 bytes a thread and four
+  // threads a record, in one commit group. Returns the number staged.
+  auto stage = [&](int c, int buf) {
+    const int piece = lane % kRecPieces;
+    for (int j = lane / kRecPieces; j < kChunk; j += kThreads / kRecPieces) {
+      const int i = c * kChunk + j;
+      if (i >= n) break;
+      const int s = i < e0   ? ids[a0 + i]
+                    : i < e1 ? ids[a1 + (i - e0)]
+                    : i < e2 ? hits[i - e1]
+                             : bb[r + (i - e2)];
+      if (piece == 0) slots[buf][j] = s;
+      cp_async16(&recs[buf][j][piece], rec + s * kRecPieces + piece);
+    }
+    cp_async_commit();
+    return min(kChunk, n - c * kChunk);
+  };
+  int m = 0;
+  for (int c = 0; c <= chunks; ++c) {
+    const int staged = c < chunks ? stage(c, c & 1) : 0;
+    if (c > 0) {
+      const int buf = (c - 1) & 1;
+      cp_async_wait(c < chunks);  // chunk c - 1's copies have landed ...
+      __syncthreads();            // ... in every thread
+      // The records that may cover a pixel, compacted by ballot.
+      const bool keep = lane < m && may_cover(recs[buf][lane]);
+      int at;
+      const int kept = compact(keep, at);
+      if (keep) order[at] = lane;
+      __syncthreads();
+      for (int j = 0; j < kept; ++j) {
+        const int k = order[j];
+        visit(slots[buf][k], recs[buf][k]);
+      }
+      __syncthreads();  // buffer buf and order are free again
+    }
+    m = staged;
   }
   shade_and_store<kBilinear, kTrackIds>(
       trf, tri, atlas, num_textures, S, best, win, f32_frame + win,
@@ -448,42 +591,51 @@ int launch_flat(const void* counts, const void* ids, const void* trf,
 
 template <bool kBilinear, bool kTrackIds>
 void start_segmented(const void* ids, const void* starts, const void* counts,
-                     const void* bb, const void* bb_count, const void* trf,
-                     const void* tri, const void* atlas, void* pix,
-                     void* depth, void* gid, int frames, int S, int entries,
-                     int num_textures, int width, int height, int y0,
-                     int background, void* stream) {
+                     const void* bb, const void* bb_count, const void* bb_box,
+                     const void* trf, const void* tri, const void* rec,
+                     const void* atlas, void* pix, void* depth, void* gid,
+                     int frames, int S, int entries, int g, int num_textures,
+                     int width, int height, int y0, int background,
+                     void* stream) {
   raster_segmented_kernel<kBilinear, kTrackIds>
       <<<tile_grid(frames, width, height), dim3(kTileW, kTileH), 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(ids), static_cast<const int*>(starts),
           static_cast<const int*>(counts), static_cast<const int*>(bb),
-          static_cast<const int*>(bb_count), static_cast<const float*>(trf),
-          static_cast<const int*>(tri), static_cast<const int*>(atlas),
+          static_cast<const int*>(bb_count), static_cast<const int4*>(bb_box),
+          static_cast<const float*>(trf), static_cast<const int*>(tri),
+          static_cast<const float4*>(rec), static_cast<const int*>(atlas),
           num_textures, static_cast<int*>(pix), static_cast<float*>(depth),
-          static_cast<int*>(gid), S, entries, width, height, y0, background);
+          static_cast<int*>(gid), S, entries, g, width, height, y0,
+          background);
 }
 
+// Boxes and records are read 16 bytes at a time: ``bb_box`` and ``rec``
+// must be 16-byte aligned.
 template <bool kBilinear>
 int launch_segmented(const void* ids, const void* starts, const void* counts,
-                     const void* bb, const void* bb_count, const void* trf,
-                     const void* tri, const void* atlas, void* pix,
-                     void* depth, void* gid, int frames, int S, int entries,
-                     int num_textures, int width, int height, int y0,
-                     int background, void* stream) {
-  if (bad_frame(frames, width, height, S) || entries < 0 || y0 < 0) {
+                     const void* bb, const void* bb_count, const void* bb_box,
+                     const void* trf, const void* tri, const void* rec,
+                     const void* atlas, void* pix, void* depth, void* gid,
+                     int frames, int S, int entries, int g, int num_textures,
+                     int width, int height, int y0, int background,
+                     void* stream) {
+  if (bad_frame(frames, width, height, S) || entries < 0 || y0 < 0 || g < 1
+      || reinterpret_cast<size_t>(rec) % 16 != 0
+      || reinterpret_cast<size_t>(bb_box) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (gid) {
-    start_segmented<kBilinear, true>(ids, starts, counts, bb, bb_count, trf,
-                                     tri, atlas, pix, depth, gid, frames, S,
-                                     entries, num_textures, width, height, y0,
-                                     background, stream);
+    start_segmented<kBilinear, true>(ids, starts, counts, bb, bb_count, bb_box,
+                                     trf, tri, rec, atlas, pix, depth, gid,
+                                     frames, S, entries, g, num_textures,
+                                     width, height, y0, background, stream);
   } else {
-    start_segmented<kBilinear, false>(ids, starts, counts, bb, bb_count, trf,
-                                      tri, atlas, pix, depth, nullptr, frames,
-                                      S, entries, num_textures, width, height,
-                                      y0, background, stream);
+    start_segmented<kBilinear, false>(ids, starts, counts, bb, bb_count,
+                                      bb_box, trf, tri, rec, atlas, pix, depth,
+                                      nullptr, frames, S, entries, g,
+                                      num_textures, width, height, y0,
+                                      background, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -520,26 +672,26 @@ extern "C" int raster_flat_bilinear(const void* counts, const void* ids,
 
 extern "C" int raster_segmented_nearest(
     const void* ids, const void* starts, const void* counts, const void* bb,
-    const void* bb_count, const void* trf, const void* tri, const void* atlas,
-    void* pix, void* depth, void* gid, int frames, int S, int entries,
-    int num_textures, int width, int height, int y0, int background,
-    void* stream) {
-  return launch_segmented<false>(ids, starts, counts, bb, bb_count, trf, tri,
-                                 atlas, pix, depth, gid, frames, S, entries,
-                                 num_textures, width, height, y0, background,
-                                 stream);
+    const void* bb_count, const void* bb_box, const void* trf, const void* tri,
+    const void* rec, const void* atlas, void* pix, void* depth, void* gid,
+    int frames, int S, int entries, int g, int num_textures, int width,
+    int height, int y0, int background, void* stream) {
+  return launch_segmented<false>(ids, starts, counts, bb, bb_count, bb_box,
+                                 trf, tri, rec, atlas, pix, depth, gid, frames,
+                                 S, entries, g, num_textures, width, height,
+                                 y0, background, stream);
 }
 
 extern "C" int raster_segmented_bilinear(
     const void* ids, const void* starts, const void* counts, const void* bb,
-    const void* bb_count, const void* trf, const void* tri, const void* atlas,
-    void* pix, void* depth, void* gid, int frames, int S, int entries,
-    int num_textures, int width, int height, int y0, int background,
-    void* stream) {
-  return launch_segmented<true>(ids, starts, counts, bb, bb_count, trf, tri,
-                                atlas, pix, depth, gid, frames, S, entries,
-                                num_textures, width, height, y0, background,
-                                stream);
+    const void* bb_count, const void* bb_box, const void* trf, const void* tri,
+    const void* rec, const void* atlas, void* pix, void* depth, void* gid,
+    int frames, int S, int entries, int g, int num_textures, int width,
+    int height, int y0, int background, void* stream) {
+  return launch_segmented<true>(ids, starts, counts, bb, bb_count, bb_box,
+                                trf, tri, rec, atlas, pix, depth, gid, frames,
+                                S, entries, g, num_textures, width, height,
+                                y0, background, stream);
 }
 
 extern "C" const char* s3d_cuda_error_string(int code) {

@@ -85,9 +85,35 @@ FLAT_MAX_SLOTS = 125
 # (chip_smoke.py's K sweep; PERF.md).
 SEG_K = 16
 
+# The super-tile of the segmented binner: G x G tiles (256 x 64 px at G = 8).
+# A live slot covering more than SEG_K tiles but at most SEG_K super-tiles
+# gets one entry per super-tile it covers; a tile walks its super-tile's
+# segment with a bbox test. Only wider slots stay on the frame-wide
+# broadband list, which every tile walks.
+SEG_G = 8
+
+# One launch's limits. The grid's third axis holds at most 65,535 frames
+# (csrc/raster.cu refuses more); the kernels index a batch's tables, and
+# bin_segments keys a batch's entries, with 32-bit offsets. ``rasterize``
+# splits a batch into launches within all three.
+LAUNCH_MAX_FRAMES = 65_535
+TABLE_MAX_WORDS = 2 ** 31 - 1      # words of a batch's (B, 43, S) table
+SORT_MAX_KEYS = 2 ** 31 - 1        # B * (tiles + super-tiles + 1) sort keys
+
+# Words of a slot record (``pack_slot_records``): the 12 f32 visibility rows
+# and the 4 bbox rows, 64 bytes.
+REC_WORDS = 16
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def seg_lists(width: int, height: int, g: int = SEG_G) -> Tuple[int, int]:
+    """(tiles, super-tiles) of a width x height frame or band: the
+    segmented binner's lists per frame, tiles first."""
+    ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
+    return ntx * nty, _cdiv(ntx, g) * _cdiv(nty, g)
 
 
 def pack_setup_tables(setup: Dict[str, torch.Tensor], gids=None):
@@ -116,6 +142,19 @@ def pack_setup_tables(setup: Dict[str, torch.Tensor], gids=None):
                         device=live.device).expand(live.shape),
     ], dim=-2).to(torch.int32).contiguous()               # (..., 7, S)
     return f32, i32
+
+
+def pack_slot_records(setup: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The segmented kernels' visibility records, slot-major: (..., S, 16)
+    f32, per slot the table rows that visibility reads — w00, dx, dy and rvz
+    (``pack_setup_tables``' f32 rows 0-11) and xmin, xmax, ymin, ymax (its
+    i32 rows 0-3, bit-cast) — 64 bytes a slot, so a kernel stages a slot's
+    record with four 16-byte copies. One concatenation: the int32 rows go in
+    as float32 views."""
+    bbox = [setup[r][..., None].view(torch.float32)
+            for r in ("xmin", "xmax", "ymin", "ymax")]
+    return torch.cat([setup["w00"], setup["dx"], setup["dy"], setup["rvz"],
+                      *bbox], dim=-1)
 
 
 def _tile_bbox(setup: Dict[str, torch.Tensor], ntx: int, nty: int,
@@ -180,74 +219,135 @@ def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
     return ids, counts
 
 
+@functools.lru_cache(maxsize=64)
+def _level_consts(device: torch.device, width: int, height: int, g: int,
+                  y_offset: int):
+    """Constants of ``segment_keys``' two levels (0: tiles, 1: super-tiles),
+    made once per device and grid: each bbox row's divisor and last index
+    (2, 4) for the rows (xmin, xmax, ymin, ymax); each level's key stride
+    and first key (2,); the band's row offset (4,)."""
+    ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
+    nsx, nsy = _cdiv(ntx, g), _cdiv(nty, g)
+
+    def ints(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    return (ints([[TILE_W, TILE_W, TILE_H, TILE_H],
+                  [TILE_W * g, TILE_W * g, TILE_H * g, TILE_H * g]]),
+            ints([[ntx - 1, ntx - 1, nty - 1, nty - 1],
+                  [nsx - 1, nsx - 1, nsy - 1, nsy - 1]]),
+            ints([ntx, nsx]), ints([0, ntx * nty]),
+            ints([0, 0, y_offset, y_offset]))
+
+
 def segment_keys(setup: Dict[str, torch.Tensor], *, width: int, height: int,
-                 k: int = SEG_K, y_offset: int = 0
+                 k: int = SEG_K, g: int = SEG_G, y_offset: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The unsorted entries of ``bin_segments``: (keys (..., S*K) int32, big
-    (..., S) bool). Entry ``slot * K + e`` is the e-th tile, row-major, of
-    the slot's tile bbox, keyed by that tile's index, for each live slot
-    whose bbox covers at most K tiles; every other entry is keyed ``ntiles``,
-    past every tile. ``big`` marks the live slots that cover more than K
-    tiles. A key is at most ``ntiles``, so it is bounded by the grid alone,
-    whatever S. The tiles are those of the band [y_offset, y_offset +
-    height); live slots outside it count as dead."""
-    ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
-    txmin, txmax, tymin, tymax = _tile_bbox(setup, ntx, nty, TILE_W, TILE_H,
-                                            y_offset)
+    (..., S) bool). Entry ``slot * K + e`` of a live slot whose bbox covers
+    at most K tiles is the e-th of those tiles, row-major, keyed by the
+    tile's index; of a live slot covering more tiles but at most K
+    super-tiles (G x G tiles), the e-th of those super-tiles, keyed
+    ``ntiles + supertile``. Every other entry is keyed ``ntiles + nsuper``,
+    past every list. ``big`` marks the live slots covering more than K
+    super-tiles: the residual broadband list. A key is at most ``ntiles +
+    nsuper``, bounded by the grid alone, whatever S. The tiles are those of
+    the band [y_offset, y_offset + height); live slots outside it count as
+    dead, and its super-tiles cover its tiles from its first row.
+
+    Both levels are computed at once on a leading level axis, so a frame
+    launches about as many kernels as with tiles alone."""
+    ntiles, nsuper = seg_lists(width, height, g)
     live = _live_in_band(setup, height, y_offset)
-    # Dead slots may have an empty bbox; clamping keeps the division defined.
-    wx = (txmax - txmin + 1).clamp(min=1)
-    area = wx * (tymax - tymin + 1)
-    small = live & (area <= k)
+    div, last, stride, first, band = _level_consts(live.device, width, height,
+                                                   g, y_offset)
+    ones = (1,) * live.dim()
+    box = torch.stack([setup["xmin"], setup["xmax"], setup["ymin"],
+                       setup["ymax"]])                     # (4, ..., S)
+    if y_offset:
+        box = box - band.view(4, *ones)
+    # (x0, x1, y0, y1) in tiles and in super-tiles, clamped to the band's
+    # grid: (2, 4, ..., S). floor(v / (TILE * g)) clamped equals the clamped
+    # tile index divided by g.
+    lv = torch.minimum(torch.div(box, div.view(2, 4, *ones),
+                                 rounding_mode="floor").clamp_(min=0),
+                       last.view(2, 4, *ones))
+    # (wx, wy) per level. Dead slots may have an empty bbox; clamping keeps
+    # the division below defined.
+    ext = (lv[:, 1::2] - lv[:, ::2] + 1).clamp_(min=1)
+    area = ext[:, 0] * ext[:, 1]
+    # Per level: the key of the bbox's first cell, its row width, and the
+    # step from a row's end to the next row's start.
+    origin = (torch.addcmul(lv[:, 0], lv[:, 2], stride.view(2, *ones))
+              + first.view(2, *ones))
+    skip = stride.view(2, *ones) - ext[:, 0]
+    per_level = torch.stack([origin, ext[:, 0], area, skip])   # (4, 2, ..., S)
+    origin, wx, area_k, skip = torch.where(area[0] <= k, per_level[:, 0],
+                                           per_level[:, 1])
+    listed = live & (area[1] <= k)
     e = torch.arange(k, dtype=torch.int32, device=live.device)
     dy = torch.div(e, wx[..., None], rounding_mode="floor")
-    tile = (tymin[..., None] + dy) * ntx + txmin[..., None] + (e - dy * wx[..., None])
-    keys = torch.where(small[..., None] & (e < area[..., None]), tile, ntx * nty)
-    return keys.flatten(-2).to(torch.int32), live & (area > k)
+    key = torch.addcmul(origin[..., None] + e, dy, skip[..., None])
+    keys = torch.where(listed[..., None] & (e < area_k[..., None]), key,
+                       ntiles + nsuper)
+    return keys.flatten(-2).to(torch.int32), live ^ listed
 
 
 def bin_segments(setup: Dict[str, torch.Tensor], *, width: int, height: int,
-                 k: int = SEG_K, y_offset: int = 0):
+                 k: int = SEG_K, g: int = SEG_G, y_offset: int = 0):
     """Segmented binning at TILE_W x TILE_H over the band [y_offset, y_offset
     + height): the large-scene front-end (``raster_pallas.py::bin_segments``).
 
     Each live slot whose bbox covers at most K tiles gives one (tile, slot)
-    entry per covered tile; one stable sort of the tile keys, slot-major,
-    groups the entries by tile with ascending slots within each tile. Slots
-    covering more tiles go to one shared ascending broadband list. Every
+    entry per covered tile; a slot covering more tiles but at most K
+    super-tiles of G x G tiles gives one (super-tile, slot) entry per covered
+    super-tile. One stable sort of the list keys (``segment_keys``),
+    slot-major, groups the entries by list — the tiles' first, then the
+    super-tiles' — with ascending slots within each list. Slots covering
+    more super-tiles go to one shared ascending residual broadband list. A
+    tile's kernel block walks its own segment, its super-tile's segment and
+    the residual list, the last two tested against the tile's bbox. Every
     shape is static (K*S entries per frame) and nothing is read back to the
     host, so a frame makes no device-to-host copy. A batch sorts once: frame
-    b's keys are offset by b * (ntiles + 1), so its entries keep their order
-    and land in its own K*S positions.
+    b's keys are offset by b * (ntiles + nsuper + 1), so its entries keep
+    their order and land in its own K*S positions.
 
-    Returns (ids (..., K*S) int32: entry slots, tile-major, the tail past the
-    last segment unused; starts (..., ntiles) int32 and counts (...,
-    ntiles) int32: each tile's segment of its frame's ``ids``; bb (..., S)
-    int32: the broadband slots ascending, then the other slots; bb_count
-    (..., 1) int32: the broadband list's length).
+    Returns (ids (..., K*S) int32: entry slots, list-major, the tail past the
+    last segment unused; starts (..., ntiles + nsuper) int32 and counts
+    (..., ntiles + nsuper) int32: each tile's, then each super-tile's,
+    segment of its frame's ``ids``; bb (..., S) int32: the residual
+    broadband slots ascending, then the other slots; bb_count (..., 1)
+    int32: the residual list's length; bb_box (..., S, 4) int32: the bbox
+    (xmin, xmax, ymin, ymax) of each slot of ``bb``, in its order, which the
+    kernels' residual filter reads without waiting for the slot id). The
+    segmented kernels also take the slot records of ``pack_slot_records``.
     """
-    keys, big = segment_keys(setup, width=width, height=height, k=k,
+    keys, big = segment_keys(setup, width=width, height=height, k=k, g=g,
                              y_offset=y_offset)
     dev = keys.device
     lead, s = big.shape[:-1], big.shape[-1]
     keys = keys.reshape(-1, s * k)
-    ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
+    nlists = sum(seg_lists(width, height, g))
+    if keys.shape[0] * (nlists + 1) > SORT_MAX_KEYS:
+        raise ValueError(f"{keys.shape[0]} frames of {nlists + 1} sort keys: "
+                         f"past {SORT_MAX_KEYS}; bin fewer frames at once")
     frame = torch.arange(keys.shape[0], dtype=torch.int32, device=dev)[:, None]
-    sorted_keys, order = torch.sort((keys + frame * (ntiles + 1)).reshape(-1),
+    sorted_keys, order = torch.sort((keys + frame * (nlists + 1)).reshape(-1),
                                     stable=True)
     ids = (torch.div(order, k, rounding_mode="floor") % s).to(torch.int32)
-    targets = frame * (ntiles + 1) + torch.arange(ntiles + 1, dtype=torch.int32,
+    targets = frame * (nlists + 1) + torch.arange(nlists + 1, dtype=torch.int32,
                                                   device=dev)
     bounds = torch.searchsorted(sorted_keys, targets.reshape(-1),
-                                out_int32=True).reshape(-1, ntiles + 1)
+                                out_int32=True).reshape(-1, nlists + 1)
     starts = bounds[:, :-1] - frame * (s * k)
     counts = bounds[:, 1:] - bounds[:, :-1]
-    slot = torch.arange(s, dtype=torch.int32, device=dev)
-    bb = (torch.sort(torch.where(big, slot, slot + s), dim=-1).values % s
-          ).to(torch.int32)
-    return (ids.reshape(*lead, s * k), starts.reshape(*lead, ntiles).contiguous(),
-            counts.reshape(*lead, ntiles).contiguous(), bb,
-            big.sum(dim=-1, dtype=torch.int32)[..., None])
+    bb = torch.sort(big, dim=-1, descending=True, stable=True).indices
+    box = torch.stack([setup[r] for r in ("xmin", "xmax", "ymin", "ymax")],
+                      dim=-1).to(torch.int32)
+    return (ids.reshape(*lead, s * k), starts.reshape(*lead, nlists).contiguous(),
+            counts.reshape(*lead, nlists).contiguous(), bb.to(torch.int32),
+            big.sum(dim=-1, dtype=torch.int32)[..., None],
+            torch.take_along_dim(box, bb[..., None], dim=-2))
 
 
 # ---------------------------------------------------------------------------
@@ -466,43 +566,61 @@ _PAIR_CHUNK = 8192
 _I32_MAX_KEY = (1 << 31) - 1
 
 
-def segmented_pairs(ids, starts, counts, bb, bb_count, tri, *, width: int,
-                    height: int, y_offset: int = 0
+def segmented_pairs(ids, starts, counts, bb, bb_count, bb_box, tri, *,
+                    width: int,
+                    height: int, g: int = SEG_G, y_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every (tile, slot) pair the segmented kernel evaluates and may let win
-    in one frame (or band): each tile's segment, and each broadband slot with
-    every tile its bbox touches. Returns (tiles, slots), int64 (n,) each.
+    in one frame (or band): each tile's segment; each super-tile segment's
+    slot with every tile of that super-tile its bbox touches; each residual
+    broadband slot with every tile its bbox touches. Returns (tiles, slots),
+    int64 (n,) each. The bboxes come from ``tri``; ``bb_box`` is unread.
     Reads counts back to the host: for the plain version and measurements
     only."""
     dev = ids.device
     ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
+    ntiles, nsuper = seg_lists(width, height, g)
     counts = counts.long()
-    seg_tiles = torch.repeat_interleave(
-        torch.arange(ntx * nty, device=dev), counts)
+    lists = torch.repeat_interleave(torch.arange(ntiles + nsuper, device=dev),
+                                    counts)
     first = torch.cumsum(counts, 0) - counts         # each segment's own start
-    pos = (starts.long()[seg_tiles]
-           + torch.arange(seg_tiles.numel(), device=dev) - first[seg_tiles])
-    seg_slots = ids.long()[pos]
+    pos = (starts.long()[lists] + torch.arange(lists.numel(), device=dev)
+           - first[lists])
+    slots = ids.long()[pos]
+    in_tile = lists < ntiles
+    tx0, tx1, ty0, ty1 = (v.long() for v in _tile_bbox(
+        {"xmin": tri[_XMIN], "xmax": tri[_XMAX], "ymin": tri[_YMIN],
+         "ymax": tri[_YMAX]}, ntx, nty, TILE_W, TILE_H, y_offset))
+    # Super-tile entries: the slot's tiles inside the super-tile.
+    sup, sup_slots = lists[~in_tile] - ntiles, slots[~in_tile]
+    sx0, sy0 = sup % _cdiv(ntx, g) * g, sup // _cdiv(ntx, g) * g
     big = bb[:int(bb_count.reshape(-1)[0])].long()
-    bbox = {"xmin": tri[_XMIN], "xmax": tri[_XMAX], "ymin": tri[_YMIN],
-            "ymax": tri[_YMAX]}
-    x0, x1, y0, y1 = (v[big].long() for v in _tile_bbox(
-        bbox, ntx, nty, TILE_W, TILE_H, y_offset))
-    wx = x1 - x0 + 1
-    area = wx * (y1 - y0 + 1)
-    bb_slots = torch.repeat_interleave(big, area)
-    j = (torch.arange(bb_slots.numel(), device=dev)
+    wide = torch.cat([sup_slots, big])
+    x0 = torch.cat([torch.maximum(tx0[sup_slots], sx0), tx0[big]])
+    x1 = torch.cat([torch.minimum(tx1[sup_slots], sx0 + g - 1), tx1[big]])
+    y0 = torch.cat([torch.maximum(ty0[sup_slots], sy0), ty0[big]])
+    y1 = torch.cat([torch.minimum(ty1[sup_slots], sy0 + g - 1), ty1[big]])
+    wx = (x1 - x0 + 1).clamp(min=0)
+    area = wx * (y1 - y0 + 1).clamp(min=0)
+    wide_slots = torch.repeat_interleave(wide, area)
+    j = (torch.arange(wide_slots.numel(), device=dev)
          - torch.repeat_interleave(torch.cumsum(area, 0) - area, area))
     wx, x0, y0 = (torch.repeat_interleave(v, area) for v in (wx, x0, y0))
-    bb_tiles = (y0 + j // wx) * ntx + x0 + j % wx
-    return torch.cat([seg_tiles, bb_tiles]), torch.cat([seg_slots, bb_slots])
+    wide_tiles = (y0 + j // wx) * ntx + x0 + j % wx
+    return (torch.cat([lists[in_tile], wide_tiles]),
+            torch.cat([slots[in_tile], wide_slots]))
 
 
-def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
-                               width: int, height: int, y_offset: int = 0
+def visibility_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
+                               trf, tri, *,
+                               width: int, height: int, g: int = SEG_G,
+                               y_offset: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Phase 1 of the segmented kernels over one whole frame (or band): (best
-    1/z (H, W) f32, winner slot (H, W) i32, -1 where nothing covers).
+    1/z (H, W) f32, winner slot (H, W) i32, -1 where nothing covers), from
+    the (43, S) and (7, S) tables: not from the slot records and residual
+    bboxes the kernel reads, so that a comparison with the kernel also
+    checks ``pack_slot_records`` and ``bb_box``.
 
     Every (tile, slot) pair of ``segmented_pairs`` is evaluated over the
     tile's pixels, in chunks, with each edge function rounded as ``(w00 +
@@ -513,8 +631,9 @@ def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
     and 1/z <= 0 (or NaN) never wins."""
     dev = trf.device
     ntx = _cdiv(width, TILE_W)
-    tiles, slots = segmented_pairs(ids, starts, counts, bb, bb_count, tri,
-                                   width=width, height=height,
+    tiles, slots = segmented_pairs(ids, starts, counts, bb, bb_count, bb_box,
+                                   tri,
+                                   width=width, height=height, g=g,
                                    y_offset=y_offset)
     lane = torch.arange(TILE_W * TILE_H, device=dev)
     lx, ly = lane % TILE_W, lane // TILE_W
@@ -542,22 +661,29 @@ def visibility_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri, *,
     return best, win.to(torch.int32).reshape(height, width)
 
 
-def raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                           textures, *, width: int, height: int,
-                           background: int, sampling: str, y_offset: int = 0,
-                           track_ids: bool = False):
+def raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box, trf,
+                           tri, rec, textures, *, width: int, height: int,
+                           background: int, sampling: str, g: int = SEG_G,
+                           y_offset: int = 0, track_ids: bool = False):
     """Plain PyTorch version of the segmented kernels: same inputs, same
     (pixels (..., H, W) int32, depth (..., H, W) f32[, gids (..., H, W)
-    int32]), over rows [y_offset, y_offset + H)."""
+    int32]), over rows [y_offset, y_offset + H). ``bb_box`` and ``rec`` are
+    checked for their shapes and otherwise unread: the plain version reads
+    the tables."""
     _check_band(y_offset)
+    lead, s = tuple(trf.shape[:-2]), trf.shape[-1]
+    for name, t, words in (("bb_box", bb_box, 4), ("rec", rec, REC_WORDS)):
+        if tuple(t.shape) != (*lead, s, words):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
+                             f"{(*lead, s, words)}")
 
     def frame(i, st, c, b, n, f, t):
-        if track_ids:     # the segments lie at the head of ids, tile-major
+        if track_ids:     # the segments lie at the head of ids, list-major
             _check_gid_order(t, torch.unique(torch.cat(
                 [i[:int(c.sum())], b[:int(n.reshape(-1)[0])]]).long()))
-        best, win = visibility_segmented_plain(i, st, c, b, n, f, t,
+        best, win = visibility_segmented_plain(i, st, c, b, n, None, f, t,
                                                width=width, height=height,
-                                               y_offset=y_offset)
+                                               g=g, y_offset=y_offset)
         return _plain_outputs(best, win, f, t, textures, background=background,
                               sampling=sampling, y_offset=y_offset,
                               track_ids=track_ids)
@@ -566,18 +692,20 @@ def raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
                         trf)
 
 
-def raster_segmented_nearest_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                   textures, **kw):
+def raster_segmented_nearest_plain(ids, starts, counts, bb, bb_count, bb_box,
+                                   trf, tri, rec, textures, **kw):
     """Plain PyTorch version of ``raster_segmented_nearest``."""
-    return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                  textures, sampling="nearest", **kw)
+    return raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
+                                  trf, tri, rec, textures, sampling="nearest",
+                                  **kw)
 
 
-def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, trf,
-                                    tri, textures, **kw):
+def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, bb_box,
+                                    trf, tri, rec, textures, **kw):
     """Plain PyTorch version of ``raster_segmented_bilinear``."""
-    return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf, tri,
-                                  textures, sampling="bilinear", **kw)
+    return raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
+                                  trf, tri, rec, textures, sampling="bilinear",
+                                  **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -587,8 +715,8 @@ def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, trf,
 def _kernel(name: str, pointers: int, ints: int):
     """The C entry point ``name``: ``pointers`` device pointers (the last,
     the gid plane, may be null), then ``ints`` ints (B, S, [entries per
-    frame,] the texture count, width, height, y0 and background), then the
-    stream."""
+    frame, the super-tile edge G,] the texture count, width, height, y0 and
+    background), then the stream."""
     fn = getattr(kernels.library(), name)
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                    + [ctypes.c_void_p])
@@ -601,9 +729,13 @@ def _frame_dims(trf: torch.Tensor):
     kernels index the batch's tables with 32-bit offsets."""
     if trf.dim() not in (2, 3):
         raise ValueError(f"trf: need (43, S) or (B, 43, S), got {tuple(trf.shape)}")
-    if trf.numel() >= 2 ** 31:
-        raise ValueError(f"trf: {trf.numel()} words, past one launch's 2^31; "
-                         "render the batch in smaller batches")
+    if trf.numel() > TABLE_MAX_WORDS:
+        raise ValueError(f"trf: {trf.numel()} words, past one launch's "
+                         f"{TABLE_MAX_WORDS}; render the batch in smaller "
+                         "batches (rasterize splits it)")
+    if trf.dim() == 3 and trf.shape[0] > LAUNCH_MAX_FRAMES:
+        raise ValueError(f"{trf.shape[0]} frames, past one launch's "
+                         f"{LAUNCH_MAX_FRAMES} (rasterize splits the batch)")
     return tuple(trf.shape[:-2]), trf.shape[-1]
 
 
@@ -709,75 +841,93 @@ def raster_flat_bilinear(counts: torch.Tensor, ids: torch.Tensor,
 
 
 def _raster_segmented(wrapper, sampling, ids, starts, counts, bb, bb_count,
-                      trf, tri, textures, *, width, height, background,
-                      y_offset, track_ids):
+                      bb_box, trf, tri, rec, textures, *, width, height,
+                      background, g, y_offset, track_ids):
     kw = dict(width=width, height=height, background=background,
               y_offset=y_offset, track_ids=track_ids)
     dev = trf.device
     if dev.type == "cpu":
-        return raster_segmented_plain(ids, starts, counts, bb, bb_count, trf,
-                                      tri, textures, sampling=sampling, **kw)
+        return raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
+                                      trf, tri, rec, textures,
+                                      sampling=sampling, g=g, **kw)
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
     _check_band(y_offset)
+    if g < 1:
+        raise ValueError(f"g={g}: a super-tile holds at least one tile")
     lead, s = _frame_dims(trf)
-    ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
+    nlists = sum(seg_lists(width, height, g))
     entries = ids.shape[-1]
     _check(ids, "ids", torch.int32, (*lead, entries), dev)
-    _check(starts, "starts", torch.int32, (*lead, ntiles), dev)
-    _check(counts, "counts", torch.int32, (*lead, ntiles), dev)
+    _check(starts, "starts", torch.int32, (*lead, nlists), dev)
+    _check(counts, "counts", torch.int32, (*lead, nlists), dev)
     _check(bb, "bb", torch.int32, (*lead, s), dev)
     _check(bb_count, "bb_count", torch.int32, (*lead, 1), dev)
+    _check(bb_box, "bb_box", torch.int32, (*lead, s, 4), dev)
     _check(trf, "trf", torch.float32, (*lead, _F32_ROWS, s), dev)
     _check(tri, "tri", torch.int32, (*lead, _I32_ROWS, s), dev)
+    _check(rec, "rec", torch.float32, (*lead, s, REC_WORDS), dev)
+    for name, t in (("bb_box", bb_box), ("rec", rec)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernels read it 16 bytes at a "
+                             "time; need a 16-byte aligned tensor")
     _check(textures, "textures", torch.int32,
            (textures.shape[0], 512, 512), dev)
-    return _launch(wrapper, (ids, starts, counts, bb, bb_count, trf, tri),
-                   textures, lead, (s, entries), **kw)
+    return _launch(wrapper, (ids, starts, counts, bb, bb_count, bb_box, trf,
+                             tri, rec), textures, lead, (s, entries, g), **kw)
 
 
 def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
                              counts: torch.Tensor, bb: torch.Tensor,
-                             bb_count: torch.Tensor, trf: torch.Tensor,
-                             tri: torch.Tensor, textures: torch.Tensor, *,
+                             bb_count: torch.Tensor, bb_box: torch.Tensor,
+                             trf: torch.Tensor, tri: torch.Tensor,
+                             rec: torch.Tensor, textures: torch.Tensor, *,
                              width: int, height: int, background: int,
-                             y_offset: int = 0, track_ids: bool = False):
-    """Visibility over each tile's segment and the broadband list, deferred
-    shading and nearest texel fetch for one frame or a batch, in one launch.
+                             g: int = SEG_G, y_offset: int = 0,
+                             track_ids: bool = False):
+    """Visibility over each tile's segment, its super-tile's segment and the
+    residual broadband list, deferred shading and nearest texel fetch for
+    one frame or a batch, in one launch.
 
-    ids (..., E) i32, starts (..., ntiles) i32, counts (..., ntiles) i32, bb
-    (..., S) i32 and bb_count (..., 1) i32 from ``bin_segments`` (with the
-    same ``y_offset``); trf (..., 43, S) f32 and tri (..., 7, S) i32 from
-    ``pack_setup_tables``; textures (NT, 512, 512) i32, shared by every
-    frame. The leading axis, where present, is the batch B. Returns (pixels
-    (..., H, W) int32 holding 0x00RRGGBB, depth (..., H, W) f32 = 1/z, 0
-    where empty[, gids (..., H, W) int32 with ``track_ids``]), equal to
-    ``raster_flat_nearest`` on the same setup table.
+    ids (..., E) i32, starts (..., ntiles + nsuper) i32, counts (..., ntiles
+    + nsuper) i32, bb (..., S) i32, bb_count (..., 1) i32 and bb_box (...,
+    S, 4) i32 from ``bin_segments`` (with the same ``g`` and ``y_offset``);
+    trf (..., 43, S) f32 and tri (..., 7, S) i32 from
+    ``pack_setup_tables``; rec (..., S, 16) f32 from ``pack_slot_records``;
+    bb_box and rec 16-byte aligned; textures (NT, 512, 512) i32, shared by
+    every frame. The leading axis, where present, is the batch B. Returns
+    (pixels (..., H, W) int32 holding 0x00RRGGBB, depth (..., H, W) f32 =
+    1/z, 0 where empty[, gids (..., H, W) int32 with ``track_ids``]), equal
+    to ``raster_flat_nearest`` on the same setup table.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``raster_segmented_nearest.launches`` counts the kernel's launches, and
     ``.launches_ids`` those of its tracking form.
     """
     return _raster_segmented(raster_segmented_nearest, "nearest", ids, starts,
-                             counts, bb, bb_count, trf, tri, textures,
-                             width=width, height=height, background=background,
-                             y_offset=y_offset, track_ids=track_ids)
+                             counts, bb, bb_count, bb_box, trf, tri, rec,
+                             textures, width=width, height=height,
+                             background=background, g=g, y_offset=y_offset,
+                             track_ids=track_ids)
 
 
 def raster_segmented_bilinear(ids: torch.Tensor, starts: torch.Tensor,
                               counts: torch.Tensor, bb: torch.Tensor,
-                              bb_count: torch.Tensor, trf: torch.Tensor,
-                              tri: torch.Tensor, textures: torch.Tensor, *,
+                              bb_count: torch.Tensor, bb_box: torch.Tensor,
+                              trf: torch.Tensor, tri: torch.Tensor,
+                              rec: torch.Tensor, textures: torch.Tensor, *,
                               width: int, height: int, background: int,
-                              y_offset: int = 0, track_ids: bool = False):
+                              g: int = SEG_G, y_offset: int = 0,
+                              track_ids: bool = False):
     """``raster_segmented_nearest`` with the bilinear texel fetch, equal to
     ``raster_flat_bilinear`` on the same setup table.
     ``raster_segmented_bilinear.launches`` and ``.launches_ids`` count its
     launches."""
     return _raster_segmented(raster_segmented_bilinear, "bilinear", ids, starts,
-                             counts, bb, bb_count, trf, tri, textures,
-                             width=width, height=height, background=background,
-                             y_offset=y_offset, track_ids=track_ids)
+                             counts, bb, bb_count, bb_box, trf, tri, rec,
+                             textures, width=width, height=height,
+                             background=background, g=g, y_offset=y_offset,
+                             track_ids=track_ids)
 
 
 for _wrapper in (raster_flat_nearest, raster_flat_bilinear,
@@ -794,6 +944,18 @@ _SEGMENTED = {"nearest": raster_segmented_nearest,
 NO_GID = 2 ** 30
 
 
+def _frames_per_launch(s: int, width: int, height: int) -> int:
+    """The most frames of S slots one launch takes: within the grid's frame
+    axis (LAUNCH_MAX_FRAMES), the table's 32-bit offsets (TABLE_MAX_WORDS)
+    and, on the segmented route, bin_segments' 32-bit sort keys
+    (SORT_MAX_KEYS). At least 1: a frame past a limit alone is refused by
+    the launch."""
+    per = min(LAUNCH_MAX_FRAMES, TABLE_MAX_WORDS // (_F32_ROWS * s))
+    if s > FLAT_MAX_SLOTS:
+        per = min(per, SORT_MAX_KEYS // (sum(seg_lists(width, height)) + 1))
+    return max(per, 1)
+
+
 def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
               width: int, height: int, background: int,
               sampling: str = "nearest", gids=None, y_offset: int = 0):
@@ -802,13 +964,25 @@ def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
     H, W) f32) for framebuffer rows [y_offset, y_offset + H). The host side
     of ``rasterize_pallas`` and ``rasterize_pallas_batch``; any scene size
     renders in one pass (the JAX package's slot cap and multipass answer the
-    TPU's SMEM, which the card does not have). The route follows S alone.
+    TPU's SMEM, which the card does not have). The route follows S alone. A
+    batch past one launch's limits (``_frames_per_launch``) renders in
+    several launches, concatenated.
 
     With ``gids`` ((S,) or (..., S) int32, ascending with slot order among
     live slots) the launch tracks winners and a third plane holds each
     pixel's winner's gid, NO_GID where depth is 0: the single-pass
     counterpart of ``_rasterize_compacted_ids``."""
     _check_sampling(sampling)
+    live = setup["live"]
+    per = _frames_per_launch(live.shape[-1], width, height)
+    if live.dim() == 2 and live.shape[0] > per:
+        gids = None if gids is None else torch.as_tensor(gids)
+        parts = [rasterize(
+            {k: v[i:i + per] for k, v in setup.items()}, textures, width=width,
+            height=height, background=background, sampling=sampling,
+            gids=gids if gids is None or gids.dim() == 1 else gids[i:i + per],
+            y_offset=y_offset) for i in range(0, live.shape[0], per)]
+        return tuple(torch.cat(p) for p in zip(*parts))
     trf, tri = pack_setup_tables(setup, gids)
     track = gids is not None
     kw = dict(width=width, height=height, background=background,
@@ -821,7 +995,8 @@ def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
     else:
         binned = bin_segments(setup, width=width, height=height,
                               y_offset=y_offset)
-        out = _SEGMENTED[sampling](*binned, trf, tri, textures, **kw)
+        out = _SEGMENTED[sampling](*binned, trf, tri, pack_slot_records(setup),
+                                   textures, **kw)
     if not track:
         return out
     pix, depth, gid = out

@@ -156,3 +156,47 @@ def test_render_batch_matches_jax_render_batch_pallas():
         both = (d > 0) & (ref_depth[b] > 0)
         np.testing.assert_allclose(d[both], ref_depth[b][both], rtol=1e-4)
     assert (depth > 0).float().mean() > 0.2
+
+
+@pytest.mark.parametrize("limit,name", [
+    ("LAUNCH_MAX_FRAMES", "default"), ("LAUNCH_MAX_FRAMES", "regular_floor"),
+    ("TABLE_MAX_WORDS", "default"), ("TABLE_MAX_WORDS", "regular_floor"),
+    ("SORT_MAX_KEYS", "regular_floor")])
+def test_batch_past_a_launch_limit_splits(monkeypatch, limit, name):
+    """A batch past one launch's limit renders in several launches: with the
+    limit monkeypatched down to two frames' worth, five frames take three
+    launches (2 + 2 + 1) of the route's kernel, and the batch equals the
+    one-launch batch bit for bit, pixels, depth and tracked gids. A single
+    launch past the limit is still refused (``_frame_dims`` for the grid and
+    the table, ``bin_segments`` for the sort keys). Flat (default scene) and
+    segmented (regular_floor) routes."""
+    dev = scene_to_device(PORT_SCENES[name](seed=0), "cpu")
+    ms = torch.from_numpy(random_poses(5100, 5))
+    w, h = 64, 48
+    setup = build_setup(dev, ms, width=w, height=h, config=port.DEFAULT_CONFIG)
+    s = setup["live"].shape[-1]
+    route = tr._FLAT if s <= tr.FLAT_MAX_SLOTS else tr._SEGMENTED
+    gids = 2 * 50 + torch.arange(s, dtype=torch.int32)
+    kw = dict(width=w, height=h, background=port.DEFAULT_CONFIG.background_packed)
+    whole = tr.rasterize(setup, dev["textures"], **kw)
+    whole_ids = tr.rasterize(setup, dev["textures"], gids=gids, **kw)
+    two = {"LAUNCH_MAX_FRAMES": 2, "TABLE_MAX_WORDS": 2 * tr._F32_ROWS * s,
+           "SORT_MAX_KEYS": 2 * (sum(tr.seg_lists(w, h)) + 1)}[limit]
+    monkeypatch.setattr(tr, limit, two)
+    launches = []
+    kernel = route["nearest"]
+    monkeypatch.setitem(route, "nearest",
+                        lambda *a, **k: launches.append(a[0].shape[0]) or kernel(*a, **k))
+    split = tr.rasterize(setup, dev["textures"], **kw)
+    assert launches == [2, 2, 1]
+    assert all(same_bits(a, b) for a, b in zip(split, whole))
+    split_ids = tr.rasterize(setup, dev["textures"], gids=gids, **kw)
+    assert all(same_bits(a, b) for a, b in zip(split_ids, whole_ids))
+    assert bool((whole[1] > 0).any())
+    three = {k: v[:3] for k, v in setup.items()}
+    if limit == "SORT_MAX_KEYS":
+        with pytest.raises(ValueError, match="sort keys"):
+            tr.bin_segments(three, width=w, height=h)
+    else:
+        with pytest.raises(ValueError, match="launch"):
+            tr._frame_dims(tr.pack_setup_tables(three)[0])

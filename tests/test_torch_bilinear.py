@@ -207,7 +207,7 @@ def test_segmented_plain_equals_flat_plain_bilinear_on_default():
                                                dev["textures"], **kw)
         ps, ds = tr.raster_segmented_bilinear_plain(
             *tr.bin_segments(setup, width=w, height=h), trf, tri,
-            dev["textures"], **kw)
+            tr.pack_slot_records(setup), dev["textures"], **kw)
         assert torch.equal(ps, pf) and torch.equal(ds, df)
         pn, _ = tr.raster_flat_nearest_plain(counts, ids, trf, tri,
                                              dev["textures"], **kw)

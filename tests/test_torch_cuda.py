@@ -2,7 +2,8 @@
 ``raster_segmented_nearest``, ``raster_flat_bilinear`` and
 ``raster_segmented_bilinear`` and their tracking forms against their plain
 PyTorch versions, batched launches against single ones, stitched bands
-against full frames, and the CUDA renderer (single frames and
+against full frames, the segmented kernels' super-tile lists, staged
+slot records and residual filter at several K and G, and the CUDA renderer (single frames and
 ``render_batch``) against the CPU one, on the default scene and on a stress
 field (3,078 slots, the segmented path); and the probes of
 ``swift3drenderer_tpu_torch.tools`` against their plain versions.
@@ -91,26 +92,30 @@ def test_cuda_renderer_equals_cpu_renderer():
 @pytest.mark.parametrize("size", [(W, H), RAGGED])
 def test_segmented_kernel_matches_plain_on_cuda(size):
     """raster_segmented_nearest against its plain version on the card, bit
-    for bit, on stress_scene(objects=128)."""
+    for bit, on stress_scene(objects=128): at the default G (the wide slots
+    listed by super-tile) and at G = 2 (some left on the residual list)."""
     need_card()
     w, h = size
     dev = scene_to_device(SCENES["stress"](seed=0, objects=128), "cuda")
     for m in flight(12)[::4]:
         setup = build_setup(dev, torch.as_tensor(m, device="cuda"), width=w,
                             height=h, config=port.DEFAULT_CONFIG)
-        trf, tri = tr.pack_setup_tables(setup)
-        binned = tr.bin_segments(setup, width=w, height=h)
-        before = tr.raster_segmented_nearest.launches
-        pk, dk = tr.raster_segmented_nearest(*binned, trf, tri,
-                                             dev["textures"], width=w,
-                                             height=h, background=BG)
-        pp, dp = tr.raster_segmented_nearest_plain(*binned, trf, tri,
-                                                   dev["textures"], width=w,
-                                                   height=h, background=BG)
-        torch.cuda.synchronize()
-        assert tr.raster_segmented_nearest.launches == before + 1
-        assert torch.equal(pk, pp) and torch.equal(dk, dp)
-        assert bool((pk != BG).any()) and int(binned[4][0]) > 0
+        tables = tables_for("segmented", setup)
+        for g in (tr.SEG_G, 2):
+            binned = tr.bin_segments(setup, width=w, height=h, g=g)
+            kw = dict(width=w, height=h, background=BG, g=g)
+            before = tr.raster_segmented_nearest.launches
+            pk, dk = tr.raster_segmented_nearest(*binned, *tables,
+                                                 dev["textures"], **kw)
+            pp, dp = tr.raster_segmented_nearest_plain(*binned, *tables,
+                                                       dev["textures"], **kw)
+            torch.cuda.synchronize()
+            assert tr.raster_segmented_nearest.launches == before + 1
+            assert torch.equal(pk, pp) and torch.equal(dk, dp)
+            assert bool((pk != BG).any())
+            ntiles = tr.seg_lists(w, h, g)[0]
+            assert int(binned[2][ntiles:].sum()) > 0
+            assert g == tr.SEG_G or int(binned[4][0]) > 0
 
 
 @pytest.mark.cuda
@@ -131,6 +136,15 @@ def test_cuda_renderer_equals_cpu_renderer_on_stress():
             pc, dc = on_cpu.render(m, w, h)
             np.testing.assert_array_equal(pg, pc)
             np.testing.assert_array_equal(dg, dc)
+
+
+def tables_for(route, setup, gids=None):
+    """The tables the route's kernels take after the bins: (trf, tri), and
+    the slot records for the segmented kernels."""
+    trf, tri = tr.pack_setup_tables(setup, gids)
+    if route == "flat":
+        return trf, tri
+    return trf, tri, tr.pack_slot_records(setup)
 
 
 def setups_on_card(name, ms, w, h, **scene_kw):
@@ -156,16 +170,12 @@ def test_bilinear_kernels_match_plain_on_cuda(route):
     plain = getattr(tr, f"raster_{route}_bilinear_plain")
     for b in range(3):
         setup = {k: v[b] for k, v in batch.items()}
-        trf, tri = tr.pack_setup_tables(setup)
-        if route == "flat":
-            binned = tr.bin_triangles(setup, width=w, height=h,
-                                      tile_h=tr.TILE_H, tile_w=tr.TILE_W)[::-1]
-        else:
-            binned = tr.bin_segments(setup, width=w, height=h)
+        tables = tables_for(route, setup)
+        binned = binned_for(route, setup, w, h)
         before = kernel.launches
-        pk, dk = kernel(*binned, trf, tri, dev["textures"], width=w, height=h,
+        pk, dk = kernel(*binned, *tables, dev["textures"], width=w, height=h,
                         background=BG)
-        pp, dp = plain(*binned, trf, tri, dev["textures"], width=w, height=h,
+        pp, dp = plain(*binned, *tables, dev["textures"], width=w, height=h,
                        background=BG)
         torch.cuda.synchronize()
         assert kernel.launches == before + 1
@@ -186,18 +196,14 @@ def test_batched_launch_equals_single_launches_on_cuda(sampling):
                             ("segmented", "stress", {"objects": 128})):
         dev, batch = setups_on_card(name, ms, w, h, **kw)
         kernel = getattr(tr, f"raster_{route}_{sampling}")
-        trf, tri = tr.pack_setup_tables(batch)
-        if route == "flat":
-            binned = tr.bin_triangles(batch, width=w, height=h,
-                                      tile_h=tr.TILE_H, tile_w=tr.TILE_W)[::-1]
-        else:
-            binned = tr.bin_segments(batch, width=w, height=h)
+        tables = tables_for(route, batch)
+        binned = binned_for(route, batch, w, h)
         before = kernel.launches
-        pb, db = kernel(*binned, trf, tri, dev["textures"], width=w, height=h,
+        pb, db = kernel(*binned, *tables, dev["textures"], width=w, height=h,
                         background=BG)
         assert kernel.launches == before + 1
         for b in range(3):
-            ps, ds = kernel(*(t[b] for t in binned), trf[b], tri[b],
+            ps, ds = kernel(*(t[b] for t in (*binned, *tables)),
                             dev["textures"], width=w, height=h, background=BG)
             assert torch.equal(pb[b], ps) and torch.equal(db[b], ds)
         config = port.RenderConfig(sampling=sampling)
@@ -235,9 +241,8 @@ def test_tracking_kernels_match_plain_on_cuda(sampling):
         s = batch["live"].shape[-1]
         gids = 1000 + torch.arange(s, dtype=torch.int32, device="cuda")
         for setup in [{k: v[b] for k, v in batch.items()} for b in range(3)] + [batch]:
-            trf, tri = tr.pack_setup_tables(setup, gids)
             binned = binned_for(route, setup, w, h)
-            args = (*binned, trf, tri, dev["textures"])
+            args = (*binned, *tables_for(route, setup, gids), dev["textures"])
             kw_out = dict(width=w, height=h, background=BG)
             before = (kernel.launches, kernel.launches_ids)
             pk, dk, gk = kernel(*args, track_ids=True, **kw_out)
@@ -265,19 +270,102 @@ def test_stitched_bands_equal_full_frame_on_cuda(route):
                 else ("stress", {"objects": 128}))
     dev, batch = setups_on_card(name, flight(12)[::4], w, h, **kw)
     setup = {k: v[1] for k, v in batch.items()}
-    trf, tri = tr.pack_setup_tables(setup)
+    tables = tables_for(route, setup)
     for sampling in ("nearest", "bilinear"):
         kernel = getattr(tr, f"raster_{route}_{sampling}")
-        full = kernel(*binned_for(route, setup, w, h), trf, tri,
+        full = kernel(*binned_for(route, setup, w, h), *tables,
                       dev["textures"], width=w, height=h, background=BG)
         for n in (2, 4, 8):
             edges = [h * i // n for i in range(n + 1)]
-            parts = [kernel(*binned_for(route, setup, w, y1 - y0, y0), trf, tri,
+            parts = [kernel(*binned_for(route, setup, w, y1 - y0, y0), *tables,
                             dev["textures"], width=w, height=y1 - y0,
                             background=BG, y_offset=y0)
                      for y0, y1 in zip(edges, edges[1:])]
             for got, want in zip((torch.cat(p) for p in zip(*parts)), full):
                 assert torch.equal(got, want), (sampling, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_segmented_lists_and_records_match_plain_on_cuda(sampling):
+    """The segmented kernel's three lists and staged records against its
+    plain version on the card, bit for bit, pixels, depth and gids: a ragged
+    frame, a band at y_offset > 0, a B = 4 batch, untracked and tracked, at
+    G = 1 (every wide slot on the residual list, as before super-tiles), 2,
+    the default and 16, and at K = 4 (long super-tile lists)."""
+    need_card()
+    w, h = RAGGED
+    dev, batch = setups_on_card("stress", flight(16)[::4], w, h, objects=128)
+    kernel = getattr(tr, f"raster_segmented_{sampling}")
+    plain = getattr(tr, f"raster_segmented_{sampling}_plain")
+    s = batch["live"].shape[-1]
+    gids = 2000 + torch.arange(s, dtype=torch.int32, device="cuda")
+    one = {k: v[0] for k, v in batch.items()}
+    cases = [(one, 0, h, k, g) for k, g in ((tr.SEG_K, 1), (tr.SEG_K, 2),
+                                            (tr.SEG_K, tr.SEG_G),
+                                            (tr.SEG_K, 16), (4, tr.SEG_G))]
+    cases += [(one, 61, 100, tr.SEG_K, tr.SEG_G), (batch, 0, h, tr.SEG_K, tr.SEG_G),
+              (batch, 61, 100, 4, 2)]
+    for setup, y0, bh, k, g in cases:
+        binned = tr.bin_segments(setup, width=w, height=bh, k=k, g=g, y_offset=y0)
+        for track in (False, True):
+            args = (*binned, *tables_for("segmented", setup,
+                                         gids if track else None),
+                    dev["textures"])
+            kw = dict(width=w, height=bh, background=BG, g=g, y_offset=y0,
+                      track_ids=track)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (y0, bh, k, g, track)
+            assert bool((got[1] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_segmented_residual_filter_matches_plain_on_cuda(sampling):
+    """A residual broadband list longer than a chunk, which the segmented
+    kernel filters by bbox before copying records, against the plain
+    version on the card, bit for bit, untracked and tracked: the stress
+    field at K = 1, G = 1 (hundreds of residual slots, a few hits a tile),
+    and the default scene's slots repeated 300 times (30,600 slots, equal
+    depths tied to the smaller slot) at K = 1, G = 1, where some tile's hits
+    pass the kernel's 768 before the rest is copied unfiltered."""
+    need_card()
+    kernel = getattr(tr, f"raster_segmented_{sampling}")
+    plain = getattr(tr, f"raster_segmented_{sampling}_plain")
+    m = torch.as_tensor(flight(1)[0], device="cuda")
+    stress = scene_to_device(SCENES["stress"](seed=0, objects=128), "cuda")
+    default = scene_to_device(SCENES["default"](seed=0), "cuda")
+    one = build_setup(default, m, width=W, height=H, config=port.DEFAULT_CONFIG)
+    cases = [(stress, build_setup(stress, m, width=RAGGED[0], height=RAGGED[1],
+                                  config=port.DEFAULT_CONFIG), *RAGGED),
+             (default, {k: torch.cat([v] * 300) for k, v in one.items()}, W, H)]
+    most = []
+    for dev, setup, w, h in cases:
+        binned = tr.bin_segments(setup, width=w, height=h, k=1, g=1)
+        wide = int(binned[4][0])
+        assert wide > 128
+        box = binned[5][:wide].cpu().numpy()
+        ntx, nty = -(-w // tr.TILE_W), -(-h // tr.TILE_H)
+        tx, ty = np.arange(ntx * nty) % ntx, np.arange(ntx * nty) // ntx
+        most.append(int(((box[:, 0, None] // tr.TILE_W <= tx)
+                         & (box[:, 1, None] // tr.TILE_W >= tx)
+                         & (box[:, 2, None] // tr.TILE_H <= ty)
+                         & (box[:, 3, None] // tr.TILE_H >= ty)).sum(0).max()))
+        s = setup["live"].shape[-1]
+        gids = 2000 + torch.arange(s, dtype=torch.int32, device="cuda")
+        for track in (False, True):
+            args = (*binned, *tables_for("segmented", setup,
+                                         gids if track else None),
+                    dev["textures"])
+            kw = dict(width=w, height=h, background=BG, g=1, track_ids=track)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (s, track)
+            assert bool((got[1] > 0).any())
+    assert most[0] < 768 < most[1]
 
 
 PROBE_ITERS = (1, 3, 64, 130)   # and each tool's full ITERS

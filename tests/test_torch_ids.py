@@ -38,6 +38,7 @@ from swift3drenderer_tpu_torch.renderer import render_frame, render_range
 from swift3drenderer_tpu_torch.renderer import scene_to_device as port_to_device
 
 from conftest import pixel_mismatch_fraction
+from test_torch_segmented import check_segment_lists
 
 BG = DEFAULT_CONFIG.background_packed
 
@@ -134,7 +135,10 @@ def test_band_binning_matches_jax_touch_sets(seed):
     of 8) of random full-frame bboxes: bin_triangles equals the JAX binner at
     the same y_offset (ids and counts), and each tile's segment plus the
     broadband slots that touch it is the JAX touch set. Slots wholly above
-    or below the band bin nowhere."""
+    or below the band bin nowhere. The segmented binner's lists over the
+    band's tiles and super-tiles meet ``check_segment_lists``' exact
+    contract at the default K and G and at K = 4, G = 2 (a ragged grid of
+    super-tiles with a residual list)."""
     rng = np.random.default_rng(seed)
     s, w, full_h, y0, h = 300, 200, 120, 37, 50
     xmin = rng.integers(0, w, s)
@@ -159,22 +163,15 @@ def test_band_binning_matches_jax_touch_sets(seed):
         [jids[t, :jcounts[t, 0]] for t in range(jids.shape[0])]))
     assert not np.isin(np.nonzero(outside)[0], binned).any()
 
-    sids, starts, scounts, bb, bb_count = tr.bin_segments(st, width=w, height=h,
-                                                          y_offset=y0)
-    bb_list = bb.numpy()[:int(bb_count[0])]
-    ntx = -(-w // tr.TILE_W)
-    nty = -(-h // tr.TILE_H)
-    tx0, tx1 = arrays["xmin"] // tr.TILE_W, arrays["xmax"] // tr.TILE_W
-    ty0 = np.clip((arrays["ymin"] - y0) // tr.TILE_H, 0, nty - 1)
-    ty1 = np.clip((arrays["ymax"] - y0) // tr.TILE_H, 0, nty - 1)
-    assert 0 < bb_list.size and not np.isin(bb_list, np.nonzero(outside)[0]).any()
-    for t in range(ntx * nty):
-        ty, tx = divmod(t, ntx)
-        seg = sids.numpy()[starts[t]:starts[t] + scounts[t]]
-        wide = bb_list[(tx0[bb_list] <= tx) & (tx <= tx1[bb_list])
-                       & (ty0[bb_list] <= ty) & (ty <= ty1[bb_list])]
-        np.testing.assert_array_equal(np.sort(np.concatenate([seg, wide])),
-                                      jids[t, :jcounts[t, 0]])
+    jlists = [jids[t, :jcounts[t, 0]] for t in range(jids.shape[0])]
+    for k, g in ((tr.SEG_K, tr.SEG_G), (4, 2)):
+        binned = tr.bin_segments(st, width=w, height=h, k=k, g=g, y_offset=y0)
+        bb_list, _ = check_segment_lists(binned, arrays, live, jlists, w, h,
+                                         k, g, y0=y0)
+        assert not np.isin(bb_list, np.nonzero(outside)[0]).any()
+        ntiles = tr.seg_lists(w, h, g)[0]
+        assert int(binned[2][ntiles:].sum()) > 0
+    assert bb_list.size > 0
 
 
 def test_flat_tracking_band_matches_pallas_chunk(default2):
@@ -204,7 +201,8 @@ def test_flat_tracking_band_matches_pallas_chunk(default2):
         assert_tracked(u32(pf[b]), df[b].numpy(), gf[b].numpy(), jp[b], jd[b],
                        jg[b])
     binned = tr.bin_segments(st, width=w, height=h, y_offset=y0)
-    ps, ds, gs = tr.raster_segmented_nearest(*binned, trf, tri, tex, **kw)
+    ps, ds, gs = tr.raster_segmented_nearest(*binned, trf, tri,
+                                             tr.pack_slot_records(st), tex, **kw)
     assert torch.equal(ps, pf) and torch.equal(ds, df) and torch.equal(gs, gf)
     pr, dr, gr = tr.rasterize(st, tex, width=w, height=h, background=BG,
                               gids=torch.from_numpy(gids), y_offset=y0)
@@ -273,7 +271,8 @@ def test_tracking_plain_versions_match_pallas(stress220):
     tex = stress220["dev"]["textures"]
     kw = dict(width=W, height=H, background=BG, track_ids=True)
     binned = tr.bin_segments(st, width=W, height=H)
-    ps, ds, gs = tr.raster_segmented_nearest(*binned, trf, tri, tex, **kw)
+    ps, ds, gs = tr.raster_segmented_nearest(*binned, trf, tri,
+                                             tr.pack_slot_records(st), tex, **kw)
     jp, jd, jg = stress220["ref"]
     assert_tracked(u32(ps), ds.numpy(), gs.numpy(), jp, jd, jg,
                    ref_none=tr.NO_GID)
