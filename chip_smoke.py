@@ -22,9 +22,11 @@ Phases; any failed check raises and the script exits non-zero:
      kernel's own, on the default scene, stress 840 and stress100k at
      1920x1080, the icosahedron bilinear and B = 4 batches; and frames cut
      into 2, 4 and 8 bands (y_offset > 0), stitched, against the full frame,
-     all four kernels; and the segmented kernels' lists at other K and G
+     all four kernels; the segmented kernels' lists at other K and G
      (G = 1, 4, 16; K = 4) on a ragged frame and on a band, untracked and
-     tracked;
+     tracked; and the flat kernels' edges in all eight forms (tiles whose
+     listed slots are all culled, depth ties at S = 125, a batch at a ragged
+     size, a band on a ragged width, hundreds of listed slots a block);
   4. drive the main paths through Renderer(..., device="cuda"), each with the
      launch counts of all four kernels set to 0 just before and read just
      after: the default scene and the 840-object stress field over bench.py's
@@ -52,19 +54,22 @@ Phases; any failed check raises and the script exits non-zero:
      several K at the default G and several G at the default K; the phase
      split of the segmented kernels (each launch with its broadband lists,
      its segments or both emptied) on stress 840 at both sizes and
-     stress100k at 1920x1080; the default scene through either route
+     stress100k at 1920x1080; the phase split of the flat kernels (every
+     list emptied, every slot untextured) and the floor of writing their
+     output planes, on the default scene (both samplings, both sizes, B =
+     4) and the icosahedron; the default scene through either route
      (flat, or segmented with the flat route's slot limit lifted): frames
      (bit-equal), binners and kernels; and the batch sweep B = 1, 2, 4, 8 at
      both sizes: ms per frame, kernels per call and the card's busy share;
      each tracking form against its kernel with the L2 cold, the per-range
      pipeline at N = 1, 2, 4, 8 (the device work of one rank of an N-card
      deployment) and merge_depth_gid; with --parent DIR (a checkout of the
-     parent commit), the four kernels and their tracking forms at y0 = 0
-     against the parent tree's (the segmented ones at the split's cells and
-     at 3840x2160 with this tree's G = 1, every wide slot residual), the
-     split of both trees, L2 cold, and each tree's whole frame (default,
-     stress 840 at both sizes) and segmented binning, in turns parent,
-     this, this, parent;
+     parent commit), the four kernels and their tracking forms against the
+     parent tree's (the flat ones at both sizes, B = 4 and a band; the
+     segmented ones at the split's cells and at 3840x2160 at G = 1, every
+     wide slot residual), the splits of both trees, L2 cold,
+     and each tree's whole frame (default, stress 840 at both sizes) and
+     segmented binning, in turns parent, this, this, parent;
   6. the share of each flight's wall time the card is busy, each kernel's
      device time per frame in the flight, and the device-to-host copies the
      flight makes (must be none), from torch.profiler; each route's device
@@ -379,14 +384,10 @@ def segmented_bound(raster, binned, trf, tri, rec, textures, width, height,
 def load_parent_raster(parent: str):
     """``ops.raster`` of the port in another checkout (the parent commit's),
     imported as package ``s3d_parent``: its kernels build from its own
-    csrc/ into its own _build/. A tree from before the slot records, whose
-    segmented kernels take no ``rec``, is wrapped to take this tree's
-    arguments: its ``pack_slot_records`` gives None, which its segmented
-    kernels drop."""
+    csrc/ into its own _build/."""
     import importlib
     import importlib.util
     import os
-    import types
 
     pkg = os.path.join(os.path.abspath(parent), "swift3drenderer_tpu_torch")
     spec = importlib.util.spec_from_file_location(
@@ -395,25 +396,15 @@ def load_parent_raster(parent: str):
     module = importlib.util.module_from_spec(spec)
     sys.modules["s3d_parent"] = module
     spec.loader.exec_module(module)
-    r = importlib.import_module("s3d_parent.ops.raster")
-    if hasattr(r, "pack_slot_records"):
-        return r
-    shim = types.SimpleNamespace(**vars(r))
-    shim.pack_slot_records = lambda setup: None
-    for sampling in ("nearest", "bilinear"):
-        launch = getattr(r, f"raster_segmented_{sampling}")
-        # (ids, starts, counts, bb, bb_count, trf, tri, rec, textures)
-        setattr(shim, f"raster_segmented_{sampling}",
-                lambda *a, _launch=launch, **kw: _launch(*a[:7], *a[8:], **kw))
-    return shim
+    return importlib.import_module("s3d_parent.ops.raster")
 
 
 # The phase split of the segmented kernels: stress 840 at both sizes and
 # stress100k at 1080p, each launch timed L2 cold with some of its lists
 # emptied (measurement inputs only; the emptied launches' outputs are thrown
-# away). "broadband" is every list a tile filters by bbox (the parent's
-# frame-wide list; here the super-tile segments and the residual list),
-# "residual" the frame-wide list alone, "segments" the tiles' own segments.
+# away). "broadband" is every list a tile filters by bbox (the super-tile
+# segments and the residual list), "residual" the frame-wide list alone,
+# "segments" the tiles' own segments.
 SPLIT_CELLS = (("stress840", 1920, 1080), ("stress840", 3840, 2160),
                ("stress100k", 1920, 1080))
 SPLIT_WAYS = ("full", "no_broadband", "no_residual", "no_segments", "neither")
@@ -494,6 +485,94 @@ def segmented_split(torch, trees: dict, setups: dict, textures: dict,
                        "rest_share": ms["neither"] / ms["full"]}
                 out.append(res)
                 print(f"split: {json.dumps(res)}", flush=True)
+    return out
+
+
+# The phase split of the flat kernels, the same definition as the segmented
+# one: each launch timed L2 cold at pose 0 in full, with every tile's list
+# emptied ("no_lists": counts 0, the block's fixed cost and the background
+# stores) and with every slot untextured ("untextured": row _ISTEX 0, the
+# texel fetch gone); and the floor, the card's time to write the same output
+# planes with one fill_ each. Cells (scene, sampling, width, height, B).
+FLAT_SPLIT_CELLS = (("default", "nearest", 1920, 1080, 1),
+                    ("default", "nearest", 3840, 2160, 1),
+                    ("default", "bilinear", 1920, 1080, 1),
+                    ("default", "bilinear", 3840, 2160, 1),
+                    ("icosahedron", "bilinear", 1920, 1080, 1),
+                    ("default", "nearest", 1920, 1080, 4))
+FLAT_SPLIT_WAYS = ("full", "no_lists", "untextured")
+
+
+def flat_ways(raster, counts, ids, trf, tri) -> dict:
+    """The flat kernels' inputs (counts, ids, trf, tri) for each way of
+    FLAT_SPLIT_WAYS."""
+    untextured = tri.clone()
+    untextured[..., raster._ISTEX, :] = 0
+    return {"full": (counts, ids, trf, tri),
+            "no_lists": (counts.new_zeros(counts.shape), ids, trf, tri),
+            "untextured": (counts, ids, trf, untextured)}
+
+
+def flat_split(torch, trees: dict, setups: dict, textures: dict, bg: int,
+               reps: int = 30) -> list:
+    """Phase split of the flat kernels of each tree ({"parent": its
+    ops.raster, "this": ours}) on the same setup tables (``setups``: {cell of
+    FLAT_SPLIT_CELLS: setup}), untracked and tracked: each way timed L2 cold
+    in turns parent, this, this, parent (this alone without a parent), and
+    the floor (fill_ of the output planes) once per turn. Share = 1 − ms
+    with that part emptied / full ms."""
+    order = (["parent", "this", "this", "parent"] if "parent" in trees
+             else ["this"])
+    out = []
+    for cell, setup in setups.items():
+        scene, sampling, width, height, b = cell
+        kw = dict(width=width, height=height, background=bg)
+        lead = (b,) if b > 1 else ()
+        for track in (False, True):
+            args = {}
+            for who, r in trees.items():
+                ids, counts = r.bin_triangles(setup, width=width,
+                                              height=height, tile_h=r.TILE_H,
+                                              tile_w=r.TILE_W)
+                gids = None
+                if track:
+                    s = setup["live"].shape[-1]
+                    gids = torch.arange(s, dtype=torch.int32,
+                                        device=counts.device)
+                trf, tri = r.pack_setup_tables(setup, gids)
+                args[who] = flat_ways(r, counts, ids, trf, tri)
+            planes = [torch.empty((*lead, height, width), dtype=dt,
+                                  device=setup["live"].device)
+                      for dt in (torch.int32, torch.float32,
+                                 torch.int32)[:2 + track]]
+
+            def floor():
+                for p in planes:
+                    p.fill_(bg if p.dtype == torch.int32 else 0)
+
+            spans = {(who, way): [] for who in trees
+                     for way in FLAT_SPLIT_WAYS + ("floor",)}
+            for who in order:
+                launch = getattr(trees[who], f"raster_flat_{sampling}")
+                for way in FLAT_SPLIT_WAYS:
+                    spans[who, way].append(time_cold_ms(
+                        torch, lambda: launch(*args[who][way],
+                                              textures[scene],
+                                              track_ids=track, **kw),
+                        reps=reps))
+                spans[who, "floor"].append(time_cold_ms(torch, floor,
+                                                        reps=reps))
+            for who in trees:
+                ms = {way: statistics.median(spans[who, way])
+                      for way in FLAT_SPLIT_WAYS + ("floor",)}
+                res = {"tree": who, "scene": scene, "sampling": sampling,
+                       "at": f"{width}x{height}", "batch": b,
+                       "tracked": track, "ms": ms,
+                       "lists_share": 1 - ms["no_lists"] / ms["full"],
+                       "texel_share": 1 - ms["untextured"] / ms["full"],
+                       "floor_share": ms["floor"] / ms["full"]}
+                out.append(res)
+                print(f"flat split: {json.dumps(res)}", flush=True)
     return out
 
 
@@ -994,6 +1073,76 @@ def run(parent: str | None = None) -> dict:
                               "bit_equal": res["bit_equal"]})
                 print(f"{what}: {json.dumps(res)}", flush=True)
 
+    # The flat kernels' edges, each in all eight forms (both samplings,
+    # untracked and tracked, a batch of frames whole and on a band at y0 >
+    # 0) against the plain versions, pixels, depth and gids bit for bit: the
+    # default scene at 1920x1080 (S = 102, not a multiple of 4), which has
+    # tiles whose listed slots the cull drops all of; its slots with the
+    # first 23 again (S = 125, the flat limit, and depth ties the earlier
+    # slot must win); B = 4 at the ragged 333x217 (a block's tiles lie in
+    # one frame); a band on the ragged 1366-pixel width; and the live slots
+    # repeated, each bbox the whole frame, so that a block culls hundreds of
+    # listed slots in several rounds.
+    def hold_flat_forms(what, setup, width, height, band, tex):
+        tracked = None
+        for sampling in ("nearest", "bilinear"):
+            name = kernel_of("flat", sampling)
+            for track in (False, True):
+                gids = gids_for(setup) if track else None
+                for y0, rows in ((0, height), band):
+                    args = (*binned_for("flat", setup, width, rows, y0),
+                            *tables_for("flat", setup, gids), tex)
+                    kw = dict(width=width, height=rows, background=bg,
+                              y_offset=y0, track_ids=track)
+                    got = getattr(raster, name)(*args, **kw)
+                    want = getattr(raster, f"{name}_plain")(*args, **kw)
+                    label = (f"{name} vs plain {what}, rows [{y0}, "
+                             f"{y0 + rows}){', tracked' if track else ''}")
+                    res = compare(*got[:2], *want[:2], label)
+                    check(not track or torch.equal(got[2], want[2]),
+                          f"{label}: gid planes differ")
+                    report(errs[f"{name}_ids" if track else name],
+                           ("edges", what, y0, sampling), res, label)
+                    if track and y0 == 0:
+                        tracked = want[2]
+        return tracked
+
+    width, height = RESOLUTIONS[0]
+    two = setup_of(np.stack(poses[:2]), width, height, arrays["default"])
+    one = {k: v[0] for k, v in two.items()}
+    counts_one, ids_one = binned_for("flat", one, width, height)
+    keep = raster.tile_cull_plain(counts_one, ids_one,
+                                  *tables_for("flat", one), width=width,
+                                  height=height)
+    whole = int(((counts_one[:, 0] > 0) & ~keep.any(dim=1)).sum())
+    print(f"default {width}x{height} pose 0: {whole} tiles whose listed slots "
+          f"are all culled", flush=True)
+    check(whole > 0, "no tile of the default scene has all its slots culled")
+    tex = arrays["default"]["textures"]
+    hold_flat_forms(f"default {width}x{height} B=2", two, width, height,
+                    (270, 270), tex)
+    dup = {k: torch.cat([v, v[:, :23]], dim=1) for k, v in two.items()}
+    gid = hold_flat_forms(f"default + 23 repeated slots (S = 125) {width}x"
+                          f"{height} B=2", dup, width, height, (270, 270), tex)
+    check(bool(((gid >= 2 * GID_BASE) & (gid < 2 * GID_BASE + 23)).any()),
+          "no repeated slot's first copy won a pixel (no depth tie)")
+    hold_flat_forms(f"default {RAGGED_SMALL[0]}x{RAGGED_SMALL[1]} B=4",
+                    setup_of(np.stack(poses[:4]), *RAGGED_SMALL,
+                             arrays["default"]), *RAGGED_SMALL, (61, 100), tex)
+    hold_flat_forms(f"default {RAGGED[0]}x{RAGGED[1]} B=2",
+                    setup_of(np.stack(poses[:2]), *RAGGED, arrays["default"]),
+                    *RAGGED, (250, 300), tex)
+    live = torch.nonzero(one["live"])[:, 0]
+    wide = {k: v[live.repeat(raster.FLAT_MAX_SLOTS // live.numel())][None]
+            for k, v in one.items()}
+    wide.update(xmin=torch.zeros_like(wide["xmin"]),
+                xmax=torch.full_like(wide["xmax"], width - 1),
+                ymin=torch.zeros_like(wide["ymin"]),
+                ymax=torch.full_like(wide["ymax"], height - 1))
+    hold_flat_forms(f"default's {live.numel()} live slots repeated, each bbox "
+                    f"the whole frame, {width}x{height}", wide, width, height,
+                    (270, 270), tex)
+
     # ---- 4. the main paths ----
     phase("4. main paths")
     launches = {k: 0 for k in FORMS}
@@ -1318,7 +1467,7 @@ def run(parent: str | None = None) -> dict:
     # The segmented binner's K at the default G, and G at the default K:
     # tile entries, super-tile entries, the residual broadband list, the
     # sort, the binner and the kernel at pose 0 (the 32 x 8 tile is fixed
-    # by the kernel; G = 1 lists no slot by super-tile, as the parent).
+    # by the kernel; G = 1 lists no slot by super-tile).
     seg_sweep = []
     for c in cells[2:5]:
         (width, height), arr = c["size"], renderers[c["renderer"]].dev
@@ -1480,41 +1629,49 @@ def run(parent: str | None = None) -> dict:
                        20)
     print(f"merge_depth_gid {width}x{height}: {merge_ms} ms", flush=True)
 
-    # With --parent DIR: the four kernels and their tracking forms at y0 = 0
-    # against the parent tree's, each tree's kernel on its own binner's and
-    # packer's outputs for the same setup table, L2 cold, in turns parent,
-    # this, this, parent (the same card in one call): the flat kernels at
-    # their 1080p main shapes, the segmented ones at the split's cells, and
-    # stress 840 at 4K with this tree's G = 1: every wide slot then lies on
-    # the residual broadband list, as in a scene whose wide slots each
-    # cover more than K super-tiles.
+    # With --parent DIR: the four kernels and their tracking forms against
+    # the parent tree's, each tree's kernel on its own binner's and packer's
+    # outputs for the same setup table, L2 cold, in turns parent, this,
+    # this, parent (the same card in one call): the flat kernels at their
+    # 1080p and 4K main shapes, on the default scene's B = 4 batch and on
+    # its band of rows [270, 540) at 1080p (all eight forms: each sampling,
+    # untracked and tracked, batched and banded); the segmented ones at the
+    # split's cells, and stress 840 at 4K at G = 1 in both trees: every wide
+    # slot then lies on the residual broadband list, as in a scene whose
+    # wide slots each cover more than K super-tiles.
     ab, frame_ab = [], []
     trees = {"this": raster}
     if parent:
         trees["parent"] = load_parent_raster(parent)
-        ab_cases = [("default", "flat", "nearest", *RESOLUTIONS[0], None),
-                    ("icosahedron bilinear", "flat", "bilinear",
-                     *RESOLUTIONS[0], None)]
+        # (name, route, sampling, width, height, G, B, y0, rows)
+        ab_cases = [("default", "flat", sampling, w, h, None, 1, 0, h)
+                    for sampling in ("nearest", "bilinear")
+                    for w, h in RESOLUTIONS]
+        ab_cases += [("icosahedron bilinear", "flat", "bilinear",
+                      *RESOLUTIONS[0], None, 1, 0, RESOLUTIONS[0][1])]
+        ab_cases += [("default", "flat", sampling, *RESOLUTIONS[0], None, b,
+                      y0, rows) for sampling in ("nearest", "bilinear")
+                     for b, y0, rows in ((4, 0, RESOLUTIONS[0][1]),
+                                         (1, 270, 270))]
         ab_cases += [(name if sampling == "nearest" else f"{name} bilinear",
-                      "segmented", sampling, w, h, g)
+                      "segmented", sampling, w, h, g, 1, 0, h)
                      for name, w, h, g in [(*c, None) for c in SPLIT_CELLS]
                      + [("stress840", *RESOLUTIONS[1], 1)]
                      for sampling in ("nearest", "bilinear")]
-        for name, route, sampling, w, h, g in ab_cases:
+        for name, route, sampling, w, h, g, b, y0, rows in ab_cases:
             kernel = kernel_of(route, sampling)
             arr = composites.get(name, (arrays[name.split()[0]],))[0]
-            setup = setup_of(poses[0], w, h, arr)
-            kw = dict(width=w, height=h, background=bg)
-            this_kw = {} if g is None else {"g": g}
+            setup = setup_of(np.stack(poses[:b]) if b > 1 else poses[0], w, h,
+                             arr)
+            kw = dict(width=w, height=rows, background=bg, y_offset=y0)
+            seg = {} if g is None else {"g": g}
             for track in (False, True):
                 gids = gids_for(setup) if track else None
-                args = {who: (*tree_binned(r, route, setup, w, h,
-                                           **(this_kw if who == "this" else {})),
+                args = {who: (*tree_binned(r, route, setup, w, rows, y0, **seg),
                               *tree_tables(r, route, setup, gids),
                               arr["textures"]) for who, r in trees.items()}
-                fns = {"parent": getattr(trees["parent"], kernel),
-                       "this": functools.partial(getattr(raster, kernel),
-                                                 **this_kw)}
+                fns = {who: functools.partial(getattr(r, kernel), **seg)
+                       for who, r in trees.items()}
                 got = {who: fns[who](*args[who], track_ids=track, **kw)
                        for who in trees}
                 compare(*got["this"][:2], *got["parent"][:2],
@@ -1527,7 +1684,8 @@ def run(parent: str | None = None) -> dict:
                         torch, lambda: fns[who](*args[who], track_ids=track,
                                                 **kw), reps=50))
                 res = {"kernel": kernel + ("_ids" if track else ""),
-                       "scene": name, "at": f"{w}x{h}", "this_g": g,
+                       "scene": name, "at": f"{w}x{h}", "batch": b,
+                       "y0": y0, "rows": rows, "g": g,
                        "parent_ms": statistics.median(spans["parent"]),
                        "this_ms": statistics.median(spans["this"]),
                        "spans": spans}
@@ -1577,6 +1735,12 @@ def run(parent: str | None = None) -> dict:
     split_textures = {name: arrays[name]["textures"]
                       for name, _, _ in SPLIT_CELLS}
     split = segmented_split(torch, trees, split_setups, split_textures, bg)
+    flat_setups = {c: setup_of(np.stack(poses[:c[4]]) if c[4] > 1 else poses[0],
+                               c[2], c[3], arrays[c[0]])
+                   for c in FLAT_SPLIT_CELLS}
+    split_flat = flat_split(torch, trees, flat_setups,
+                            {c[0]: arrays[c[0]]["textures"]
+                             for c in FLAT_SPLIT_CELLS}, bg)
 
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
@@ -1665,6 +1829,13 @@ def run(parent: str | None = None) -> dict:
         check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
               f"{name} {n}-rank composite: copied to the host")
 
+    def parent_ms(form, scene):
+        """The parent's ms in the A/B at a form's main shape (``scene`` at
+        1920x1080, one frame, y0 = 0)."""
+        return next((x["parent_ms"] for x in ab if x["kernel"] == form
+                     and x["scene"] == scene and x["at"] == "1920x1080"
+                     and x["batch"] == 1 and x["y0"] == 0), "not measured")
+
     def kernel_row(name, replaces, main_scene):
         rows_k = [r for r in table if r["kernel"] == name]
         main_at = "{} {}x{}".format(main_scene, *RESOLUTIONS[0])
@@ -1689,8 +1860,7 @@ def run(parent: str | None = None) -> dict:
             "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"],
             "library_ms": None,
-            "parent_ms_same_call": next((x["parent_ms"] for x in ab
-                                         if x["kernel"] == name), "not measured"),
+            "parent_ms_same_call": parent_ms(name, main_scene),
             "shapes": [{k: r.get(k) for k in (
                 "scene", "at", "batch", "ms", "ms_in_flight", "plain_ms",
                 "bound_ms", "bound_by", "tile_bound_ms", "frame_ms_median",
@@ -1725,9 +1895,7 @@ def run(parent: str | None = None) -> dict:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": None,
-            "parent_ms_same_call": next((x["parent_ms"] for x in ab
-                                         if x["kernel"] == f"{kernel}_ids"),
-                                        "not measured"),
+            "parent_ms_same_call": parent_ms(f"{kernel}_ids", r["scene"]),
         }
 
     phase("7. probes")
@@ -1750,7 +1918,7 @@ def run(parent: str | None = None) -> dict:
                       "per_range_ms": range_ms, "merge_ms": merge_ms,
                       "ab_parent": ab or "not measured",
                       "frame_ab_parent": frame_ab or "not measured",
-                      "split": split,
+                      "split": split, "flat_split": split_flat,
                       "seg_sweep": seg_sweep}))
     phase("done")
     print(card)

@@ -23,14 +23,21 @@
 // TPU kernel's y0_ref / y_top): it covers rows [y0, y0 + height) of a
 // full-frame setup table into a (height, width) output.
 //
-// Design. One thread block per kTileW x kTileH pixel tile and frame
-// (blockIdx.z = frame; TILE_W x TILE_H in ops/raster.py, which bins for it),
-// one thread per pixel. A block reads its frame's columns of the batch's
-// tables and writes its frame's output planes; otherwise the body is the
-// single-frame body. The flat kernel stages its slot list in shared memory,
-// kThreads entries at a time, and reads the slot tables through L1/L2: all
-// threads of a block read the same slot's words in the same iteration, so
-// each read is one broadcast. The segmented kernel walks three lists as one
+// Design. One thread per pixel of a kTileW x kTileH tile (TILE_W x TILE_H in
+// ops/raster.py, which bins for it); the grid's third axis is the frame, and
+// a block reads its frame's columns of the batch's tables and writes its
+// frame's output planes.
+// The flat kernel's block covers up to kFlatTiles tiles of one frame, spread
+// over it (tiles b, b + G, b + 2G, ... of its G blocks). One warp reads and
+// scans its tiles' counts; the block reads every listed slot id of its
+// tiles and copies the table columns of the slots they list into shared
+// memory with cp.async, as slot-major records; it culls each listed slot
+// once for its tile (tile_may_cover), one a thread, and compacts the
+// survivors by ballot in the lists' ascending order. The tiles are then
+// drawn with no barrier between them: each pixel visits its tile's
+// survivors and shades its winner from shared memory, and a warp goes on to
+// the next tile while others wait on their texels.
+// The segmented kernel's block covers one tile and walks three lists as one
 // run: its tile's segment, its super-tile's segment (G x G tiles, the slots
 // too wide for per-tile entries) and the residual broadband list (the
 // widest). For each chunk of kChunk listed slots it copies their 64-byte
@@ -41,11 +48,13 @@
 // which a tile mostly misses, is first filtered by bbox, one slot a thread
 // (bin_segments lists the residual slots' bboxes in the list's order), into
 // a list of hits in shared memory; only the hits' records are copied (past
-// kHits hits, the rest of the list is copied whole). Each staged record
-// whose bbox misses the tile, or one of whose edge functions is negative
-// over the whole tile (tested at the corner its signs pick), is dropped
-// once for the block, the rest compacted by ballot, and a visit reads four
-// shared-memory broadcasts instead of 16 table words.
+// kHits hits, the rest of the list is copied whole). Each staged record is
+// culled once for the block by the same test as the flat kernel's list, the
+// rest compacted by ballot, and a visit reads four shared-memory broadcasts
+// instead of 16 table words.
+// The cull (tile_may_cover) drops a slot whose bbox misses the tile, or one
+// of whose edge functions is negative over the whole tile, tested at the
+// corner its signs pick.
 // After visibility each thread shades its own winner and reads its texel
 // with one load from the atlas, or its four bilinear taps with four. The TPU
 // kernel's 8-row strips, 8-row atlas-block unrolls, row-constant path,
@@ -63,21 +72,23 @@
 // flat kernel walks ascending slots with a strict '>', so the earlier slot
 // keeps a depth tie (render.swift:323-325); the segmented kernel's three
 // lists interleave in slot order, so it states the same rule without the
-// order: the greater 1/z wins, and at equal 1/z > 0 the smaller slot. The TPU
-// kernel's segmented tracking form breaks that tie on the smaller gid
-// instead; the two agree because every caller's gids ascend with slot order
-// among a frame's live slots (ops/raster.py checks it in the plain version).
+// order: the greater 1/z wins, and at equal 1/z > 0 the smaller slot (the
+// flat kernel's cull keeps its survivors in ascending order, so its strict
+// '>' is that rule too). The TPU kernel's segmented tracking form breaks
+// that tie on the smaller gid instead; the two agree because every caller's
+// gids ascend with slot order among a frame's live slots (ops/raster.py
+// checks it in the plain version).
 //
 // Bound. Per pixel a kernel writes 8 bytes (12 tracking), reads at most one
 // atlas word (four taps for bilinear, mostly shared with neighbouring
 // pixels) and does ~17 flops for each slot whose bbox holds the pixel, plus
 // ~100 (bilinear ~135) for its winner's shading; at the main path's shapes
 // the bytes bound (chip_smoke.py computes it from the run's own tables and
-// texel fetches). The flat kernels favour being right: their tables are read
-// from L1/L2 on every slot, and nothing is staged ahead. What holds the
-// segmented kernel near its measured time is each block's chain of dependent
-// loads (list bounds, slot ids, records, the winner's table columns, its
-// texel) and the fixed cost of a block, not bytes (PERF.md).
+// texel fetches). What holds the segmented kernel near its measured time is
+// each block's chain of dependent loads (list bounds, slot ids, records, the
+// winner's table columns, its texel) and the fixed cost of a block; the flat
+// kernel pays that chain once for up to kFlatTiles tiles, and what holds it
+// is the shading's arithmetic and the output stores, not bytes (PERF.md).
 //
 // Numerics, to stay bit-equal with the plain PyTorch versions:
 //  - built with --fmad=false: every multiply and add rounds separately, in the
@@ -86,13 +97,15 @@
 //  - float -> int32 packs truncate with saturation and NaN -> 0 (cvt.rzi), as
 //    XLA does, and are shifted as unsigned words;
 //  - texel addressing sanitizes non-finite levels and uv as
-//    ops/texture.py does. Nearest: fmodf (exact, negative for uv < 0), each
-//    axis clamped to [0, 511] inside the texture's 512-row block. Bilinear:
-//    the floor-mod of jnp.mod / torch.remainder (fmodf, plus 1 if negative,
-//    which may round to 1.0), then mod(u, 1) * L - 0.5, floor, weights
-//    t - floor(t), taps & (L - 1), and the four weighted channels summed left
-//    to right in the plain version's order.
+//    ops/texture.py does. Nearest: fmod(uv, 1) (exact, negative for uv < 0;
+//    computed as uv - truncf(uv)), each axis clamped to [0, 511] inside the
+//    texture's 512-row block. Bilinear: the floor-mod of jnp.mod /
+//    torch.remainder (fmod, plus 1 if negative, which may round to 1.0),
+//    then mod(u, 1) * L - 0.5, floor, weights t - floor(t), taps & (L - 1),
+//    and the four weighted channels summed left to right in the plain
+//    version's order.
 
+#include <algorithm>
 #include <cfloat>
 #include <cuda_runtime.h>
 
@@ -107,9 +120,12 @@ constexpr int kXMIN = 0, kXMAX = 1, kYMIN = 2, kYMAX = 3, kTEXBASE = 4,
 constexpr int kAtlasEdge = 512;
 // The pixel tile; ops/raster.py's TILE_W, TILE_H bin for the same one.
 constexpr int kTileW = 32, kTileH = 8, kThreads = kTileW * kTileH;
-// A slot record (ops/raster.py::pack_slot_records): the f32 rows kW00 ..
-// kRVZ + 2, then the i32 rows kXMIN .. kYMAX bit-cast; 64 bytes, copied as
-// four 16-byte pieces.
+constexpr int kWarps = kThreads / 32;
+// The rows visibility reads: the f32 rows kW00 .. kRVZ + 2 and the i32 rows
+// kXMIN .. kYMAX. A slot record (ops/raster.py::pack_slot_records) holds
+// them slot-major, the i32 words bit-cast: 64 bytes, copied as four 16-byte
+// pieces.
+constexpr int kVisF32Rows = 12, kVisI32Rows = 4;
 constexpr int kRecPieces = 4;
 
 // Asynchronous 16-byte copies from global to shared memory (sm_80 and up):
@@ -118,6 +134,13 @@ constexpr int kRecPieces = 4;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+// The 4-byte form, for rows that need not be 16-byte aligned (through L1).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(gmem)
                : "memory");
 }
@@ -168,11 +191,17 @@ __device__ __forceinline__ float finite_uv(float uv) {
   return uv != uv ? 0.0f : fminf(fmaxf(uv, -FLT_MAX), FLT_MAX);
 }
 
+// fmodf(x, 1.0f) of a finite x, in two instructions: x - truncf(x) is exact
+// and equals it for every finite float but for the sign of a zero (x an
+// integer), which changes nothing below: the fraction is scaled, then
+// truncated or moved by -0.5.
+__device__ __forceinline__ float frac_part(float x) { return x - truncf(x); }
+
 // Texel index along one axis: trunc(fmod(uv, 1) * L) + (511 & ~(2L - 1)),
 // clamped to [0, 511] (render.swift:104-111).
 __device__ __forceinline__ int texel_axis(float uv, float level) {
   const int lp = pow2_level(level);
-  const int t = trunc_i32(fmodf(finite_uv(uv), 1.0f) * static_cast<float>(lp))
+  const int t = trunc_i32(frac_part(finite_uv(uv)) * static_cast<float>(lp))
                 + (511 & ~(2 * lp - 1));
   return min(max(t, 0), kAtlasEdge - 1);
 }
@@ -184,7 +213,7 @@ __device__ __forceinline__ int texel_axis(float uv, float level) {
 __device__ __forceinline__ void bilinear_axis(float uv, float level, int& lo,
                                               int& hi, float& w) {
   const int lp = pow2_level(level);
-  float r = fmodf(finite_uv(uv), 1.0f);
+  float r = frac_part(finite_uv(uv));
   if (r < 0.0f) r += 1.0f;  // may round to 1.0; the & (L - 1) below wraps it
   const float t = r * static_cast<float>(lp) - 0.5f;
   const float f = floorf(t);
@@ -195,43 +224,100 @@ __device__ __forceinline__ void bilinear_axis(float uv, float level, int& lo,
   w = t - f;
 }
 
-// 1/z of a slot at pixel (px, py) where it covers it, else 0; f and i are
-// the slot's columns in the batch's f32 and i32 tables (its frame's offset
-// plus the slot). Each edge function rounds as (w00 + px*dx) + py*dy.
-__device__ __forceinline__ float slot_ooz(const float* __restrict__ trf,
-                                          const int* __restrict__ tri, int S,
-                                          int f, int i, int px, int py,
-                                          float pxf, float pyf) {
-  const float w0 = trf[(kW00 + 0) * S + f] + pxf * trf[(kDX + 0) * S + f]
-                   + pyf * trf[(kDY + 0) * S + f];
-  const float w1 = trf[(kW00 + 1) * S + f] + pxf * trf[(kDX + 1) * S + f]
-                   + pyf * trf[(kDY + 1) * S + f];
-  const float w2 = trf[(kW00 + 2) * S + f] + pxf * trf[(kDX + 2) * S + f]
-                   + pyf * trf[(kDY + 2) * S + f];
-  const bool cover = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f
-                     && px >= tri[kXMIN * S + i] && px <= tri[kXMAX * S + i]
-                     && py >= tri[kYMIN * S + i] && py <= tri[kYMAX * S + i];
-  const float ooz = w0 * trf[(kRVZ + 0) * S + f] + w1 * trf[(kRVZ + 1) * S + f]
-                    + w2 * trf[(kRVZ + 2) * S + f];
-  return cover ? ooz : 0.0f;
+// A slot's visibility words: the weights (w00 + px*dx) + py*dy of its three
+// edge functions and 1/z, and its bbox.
+struct SlotVis {
+  float w00[3], dx[3], dy[3], rvz[3];
+  int xmin, xmax, ymin, ymax;
+};
+
+// From a slot record: r[0] = (w00.x, w00.y, w00.z, dx.x), r[1] = (dx.y,
+// dx.z, dy.x, dy.y), r[2] = (dy.z, rvz.x, rvz.y, rvz.z), r[3] = the bbox.
+__device__ __forceinline__ SlotVis vis_of_record(const float4* r) {
+  const float4 a = r[0], b = r[1], c = r[2];
+  const int4 box = reinterpret_cast<const int4*>(r)[3];
+  return {{a.x, a.y, a.z}, {a.w, b.x, b.y}, {b.z, b.w, c.x},
+          {c.y, c.z, c.w}, box.x, box.y, box.z, box.w};
+}
+
+// A tile's first and last pixel column and framebuffer row.
+struct TileBox {
+  int x0, x1, y0, y1;
+};
+
+// Whether bbox (xmin, xmax, ymin, ymax) meets the tile.
+__device__ __forceinline__ bool box_meets(int4 b, TileBox t) {
+  return b.x <= t.x1 && b.y >= t.x0 && b.z <= t.y1 && b.w >= t.y0;
+}
+
+// Whether a slot may cover a pixel of the tile: its bbox meets the tile, and
+// each edge function is >= 0 somewhere in it. Each edge function, rounded as
+// the visit rounds it, is monotone in px and in py, so its largest value
+// over the tile is at the corner its signs pick: a slot failing this covers
+// no pixel here (a NaN keeps it). Both kernels cull with it.
+__device__ __forceinline__ bool tile_may_cover(const SlotVis& v, TileBox t) {
+  if (!box_meets(make_int4(v.xmin, v.xmax, v.ymin, v.ymax), t)) {
+    return false;
+  }
+  const float x0 = static_cast<float>(t.x0), x1 = static_cast<float>(t.x1);
+  const float y0 = static_cast<float>(t.y0), y1 = static_cast<float>(t.y1);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if ((v.w00[k] + (v.dx[k] >= 0.0f ? x1 : x0) * v.dx[k])
+            + (v.dy[k] >= 0.0f ? y1 : y0) * v.dy[k]
+        < 0.0f) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// 1/z of a slot at pixel (px, py) where it covers it, else 0. Each edge
+// function rounds as (w00 + px*dx) + py*dy, as the plain versions do.
+__device__ __forceinline__ float vis_ooz(const SlotVis& v, int px, int py,
+                                         float pxf, float pyf) {
+  const float w0 = v.w00[0] + pxf * v.dx[0] + pyf * v.dy[0];
+  const float w1 = v.w00[1] + pxf * v.dx[1] + pyf * v.dy[1];
+  const float w2 = v.w00[2] + pxf * v.dx[2] + pyf * v.dy[2];
+  const bool cover = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && px >= v.xmin
+                     && px <= v.xmax && py >= v.ymin && py <= v.ymax;
+  return cover ? w0 * v.rvz[0] + w1 * v.rvz[1] + w2 * v.rvz[2] : 0.0f;
+}
+
+// Compaction by ballot over the block: returns how many threads keep, and
+// sets ``at`` to this thread's place among them, in lane order. warp_kept
+// (kWarps ints of shared memory) may be written again only after every
+// thread has passed a later __syncthreads.
+__device__ __forceinline__ int block_compact(bool keep, int lane,
+                                             int* warp_kept, int& at) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+  if (lane % 32 == 0) warp_kept[lane / 32] = __popc(ballot);
+  __syncthreads();
+  int kept = 0;
+  at = __popc(ballot & ((1u << (lane % 32)) - 1u));
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    at += w < lane / 32 ? warp_kept[w] : 0;
+    kept += warp_kept[w];
+  }
+  return kept;
 }
 
 // Phases 2 and 3 for one pixel, and its stores: depth (and, tracking, the
 // winner's gid or -1), then the background where nothing won, the winner's
 // flat colour pack, or its nearest texel (or bilinear blend of four) times
-// the shade. f and i are the winner's table columns (slot_ooz); py is the
-// framebuffer row, row = py - y0 the output row.
-template <bool kBilinear, bool kTrackIds>
+// the shade. T(r) and I(r) read the winner's f32 and i32 table rows r (only
+// where win >= 0); py is the framebuffer row, row = py - y0 the output row.
+template <bool kBilinear, bool kTrackIds, class F32, class I32>
 __device__ __forceinline__ void shade_and_store(
-    const float* __restrict__ trf, const int* __restrict__ tri,
-    const int* __restrict__ atlas, int num_textures, int S, float best,
-    int win, int f, int i, int px, int py, int row, int width, int height,
+    F32 T, I32 I, const int* __restrict__ atlas, int num_textures,
+    float best, int win, int px, int py, int row, int width, int height,
     int background, int* __restrict__ pix, float* __restrict__ depth,
     int* __restrict__ gid) {
   if (px >= width || row >= height) return;
   const size_t o = static_cast<size_t>(row) * width + px;
   depth[o] = best;
-  if constexpr (kTrackIds) gid[o] = win < 0 ? -1 : tri[kGID * S + i];
+  if constexpr (kTrackIds) gid[o] = win < 0 ? -1 : I(kGID);
   if (win < 0) {
     pix[o] = background;
     return;
@@ -240,7 +326,6 @@ __device__ __forceinline__ void shade_and_store(
   const float pyf = static_cast<float>(py);
 
   // ---- phase 2: shade the winner (render.swift:326-331) ----
-  auto T = [&](int r) { return trf[r * S + f]; };
   const float inv = 1.0f / best;
   const float t0 = (T(kW00 + 0) + pxf * T(kDX + 0) + pyf * T(kDY + 0)) * inv;
   const float t1 = (T(kW00 + 1) + pxf * T(kDX + 1) + pyf * T(kDY + 1)) * inv;
@@ -264,7 +349,7 @@ __device__ __forceinline__ void shade_and_store(
   const float sh = (hx * nx + hy * ny + hz * nz) * hn;
   const float cr = interp(kATTRP + 0), cg = interp(kATTRP + 1),
               cb = interp(kATTRP + 2);
-  if (tri[kISTEX * S + i] == 0) {
+  if (I(kISTEX) == 0) {
     pix[o] = pack_rgb(sh, cr, cg, cb);
     return;
   }
@@ -273,7 +358,7 @@ __device__ __forceinline__ void shade_and_store(
   // (cr, cg) is the perspective-correct (u, v) (render.swift:94-111).
   const float lvl_u = best / fabsf(T(kTPP + 0) - cr * T(kDZV + 0));
   const float lvl_v = best / fabsf(T(kTPP + 1) - cg * T(kDZV + 1));
-  const int tex = min(max(tri[kTEXBASE * S + i] >> 18, 0),
+  const int tex = min(max(I(kTEXBASE) >> 18, 0),
                       max(num_textures - 1, 0));
   const int* __restrict__ block =
       atlas + static_cast<size_t>(tex) * kAtlasEdge * kAtlasEdge;
@@ -314,49 +399,176 @@ __device__ __forceinline__ void shade_and_store(
   const int f32_frame = blockIdx.z * kF32Rows * S;                 \
   const int i32_frame = blockIdx.z * kI32Rows * S
 
+// The flat kernels' slot limit: ops/raster.py's FLAT_MAX_SLOTS. A frame's
+// table stays in shared memory.
+constexpr int kFlatMaxSlots = 125;
+// The most tiles a flat block covers, spread over its frame (the launch
+// gives each block fewer when the frames have too few tiles to fill the
+// card with full blocks), and the blocks a SM it is built for, which caps
+// its registers. Chosen on the card (tools/seg_variants.py; PERF.md).
+constexpr int kFlatTiles = 16;
+constexpr int kFlatBlocksPerSM = 6;
+// A staged slot, slot-major and 16-byte aligned, so that a visit reads four
+// shared-memory words of 16 bytes and shading reads every row at a constant
+// offset: words 0-15 the visibility record (pack_slot_records' layout: the
+// f32 rows kW00 .. kRVZ + 2, then the i32 rows kXMIN .. kYMAX), words 16-46
+// the f32 rows kCVP .. kDZV + 1, words 47-49 the i32 rows kTEXBASE .. kGID.
+constexpr int kFlatRecWords = 52;
+constexpr int kFlatRecRows = kF32Rows + kI32Rows;
+__device__ __forceinline__ constexpr int flat_word_f32(int r) {
+  return r < kVisF32Rows ? r : r + kVisI32Rows;
+}
+__device__ __forceinline__ constexpr int flat_word_i32(int r) {
+  return r < kVisI32Rows ? kVisF32Rows + r : kF32Rows + r;
+}
+
 template <bool kBilinear, bool kTrackIds>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFlatBlocksPerSM)
 raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
                    const float* __restrict__ trf, const int* __restrict__ tri,
                    const int* __restrict__ atlas, int num_textures,
                    int* __restrict__ pix, float* __restrict__ depth,
                    int* __restrict__ gid, int S, int width, int height, int y0,
                    int background) {
-  __shared__ int list[kThreads];
+  static_assert(kFlatTiles <= 32, "one warp scans the tiles' counts");
+  static_assert(kFlatMaxSlots <= kThreads, "one slot a thread");
+  constexpr int kMaskWords = (kFlatMaxSlots + 31) / 32;
+  static_assert(kFlatMaxSlots < 256 && kFlatTiles * kFlatMaxSlots < 32768,
+                "slots fit a byte, pairs a short");
+  constexpr int kPairs = kFlatTiles * kFlatMaxSlots;
+  __shared__ float4 recs[kFlatMaxSlots * kFlatRecWords / 4];
+  __shared__ int list_start[kFlatTiles + 1];  // each tile's first pair
+  // The tiles' lists, tile-major, then (the cull reads pair p before any
+  // survivor lands at or before p) the survivors, tile-major.
+  __shared__ unsigned char pairs_then_kept[kPairs];
+  __shared__ short kept_before[kPairs + 1];   // survivors before each pair
+  __shared__ unsigned listed_mask[kMaskWords];  // slots some tile lists
+  __shared__ unsigned char marked_slots[kFlatMaxSlots];  // those, ascending
+  __shared__ int warp_kept[kWarps];
   S3D_FRAME_OFFSETS();
-  const int ntiles = gridDim.x * gridDim.y;
+  float* const words = reinterpret_cast<float*>(recs);
+  auto rec = [&](int s) { return recs + s * (kFlatRecWords / 4); };
   const int lane = threadIdx.y * kTileW + threadIdx.x;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const size_t frame_tile = static_cast<size_t>(blockIdx.z) * ntiles + tile;
-  const int px = blockIdx.x * kTileW + threadIdx.x;
-  const int row = blockIdx.y * kTileH + threadIdx.y;
-  const int py = y0 + row;
-  const float pxf = static_cast<float>(px);
-  const float pyf = static_cast<float>(py);
+  const int ntx = (width + kTileW - 1) / kTileW;
+  const int ntiles = ntx * ((height + kTileH - 1) / kTileH);
+  // This block's tiles of frame blockIdx.z: tile(k) = blockIdx.x + k *
+  // gridDim.x for k < mine, spread over the frame, so that every block gets
+  // a like share of its empty and its drawn tiles.
+  const int mine = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  auto tile = [&](int k) {
+    return static_cast<int>(blockIdx.x + k * gridDim.x);
+  };
+  const int* __restrict__ frame_counts =
+      counts + static_cast<size_t>(blockIdx.z) * ntiles;
+  const int* __restrict__ frame_ids =
+      ids + static_cast<size_t>(blockIdx.z) * ntiles * S;
 
-  // ---- phase 1: visibility over the tile's ascending slot list ----
-  const int n = counts[frame_tile];
-  const int* tile_ids = ids + frame_tile * S;
-  float best = 0.0f;  // depth cleared to 0: 1/z > 0 wherever a slot covers
-  int win = -1;
-  for (int base = 0; base < n; base += kThreads) {
-    const int m = min(kThreads, n - base);
-    __syncthreads();
-    if (lane < m) list[lane] = tile_ids[base + lane];
-    __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const int s = list[j];
-      const float ooz = slot_ooz(trf, tri, S, f32_frame + s, i32_frame + s,
-                                 px, py, pxf, pyf);
+  // ---- set-up, once for the block: warp 0 reads and scans its tiles'
+  // counts; every listed slot id of the tiles, each listed slot marked;
+  // then the marked slots' table columns, transposed to slot-major records
+  // with cp.async, 4 bytes a copy ----
+  if (lane < kMaskWords) listed_mask[lane] = 0u;
+  if (lane < 32) {  // warp 0: list_start[k + 1] = counts of tiles 0 .. k
+    int c = lane < mine ? frame_counts[tile(lane)] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int up = __shfl_up_sync(0xffffffffu, c, d);
+      c += lane >= d ? up : 0;
+    }
+    if (lane < mine) list_start[lane + 1] = c;
+    if (lane == 0) list_start[0] = 0;
+  }
+  __syncthreads();
+  const int pairs = list_start[mine];
+  auto tile_of = [&](int p) {  // the k whose list holds pair p
+    int k = 0;
+    while (list_start[k + 1] <= p) ++k;
+    return k;
+  };
+  for (int p = lane; p < pairs; p += kThreads) {
+    const int k = tile_of(p);
+    const int s = frame_ids[static_cast<size_t>(tile(k)) * S
+                            + (p - list_start[k])];
+    pairs_then_kept[p] = static_cast<unsigned char>(s);
+    atomicOr(&listed_mask[s / 32], 1u << (s % 32));
+  }
+  __syncthreads();
+  int at;
+  const bool marked_here =
+      lane < S && ((listed_mask[lane / 32] >> (lane % 32)) & 1u);
+  const int marked = block_compact(marked_here, lane, warp_kept, at);
+  if (marked_here) marked_slots[at] = static_cast<unsigned char>(lane);
+  __syncthreads();
+  for (int e = lane; e < marked * kFlatRecRows; e += kThreads) {
+    const int j = e / kFlatRecRows, r = e - j * kFlatRecRows;
+    const int s = marked_slots[j];
+    if (r < kF32Rows) {
+      cp_async4(&words[s * kFlatRecWords + flat_word_f32(r)],
+                trf + f32_frame + r * S + s);
+    } else {
+      const int ri = r - kF32Rows;
+      cp_async4(&words[s * kFlatRecWords + flat_word_i32(ri)],
+                tri + i32_frame + ri * S + s);
+    }
+  }
+  cp_async_commit();
+  cp_async_wait(0);
+  __syncthreads();
+
+  // ---- phase 1a: every listed slot culled for its tile, one a thread,
+  // the survivors compacted by ballot in the lists' order (so each tile's
+  // stay ascending); tile k's survivors are kept[kept_before[list_start[k]]
+  // .. kept_before[list_start[k + 1]]) ----
+  auto box_of = [&](int k) {
+    const int t = tile(k), ty = t / ntx, tx = t - ty * ntx;
+    return TileBox{tx * kTileW, tx * kTileW + kTileW - 1, y0 + ty * kTileH,
+                   y0 + ty * kTileH + kTileH - 1};
+  };
+  int total = 0;
+  for (int base = 0; base < pairs; base += kThreads) {
+    const int p = base + lane;
+    const int s = p < pairs ? pairs_then_kept[p] : 0;
+    const bool keep =
+        p < pairs && tile_may_cover(vis_of_record(rec(s)), box_of(tile_of(p)));
+    int at;
+    const int kept = block_compact(keep, lane, warp_kept, at);
+    if (keep) pairs_then_kept[total + at] = static_cast<unsigned char>(s);
+    if (p < pairs) kept_before[p] = static_cast<short>(total + at);
+    total += kept;
+    __syncthreads();  // warp_kept free again
+  }
+  if (lane == 0) kept_before[pairs] = static_cast<short>(total);
+  __syncthreads();
+  const unsigned char* const kept = pairs_then_kept;
+
+  // ---- phases 1b-3 for each tile: each pixel visits its tile's survivors
+  // in ascending order; no barrier, so a warp goes on to the next tile
+  // while others wait on their texels ----
+  for (int k = 0; k < mine; ++k) {
+    const TileBox box = box_of(k);
+    const int px = box.x0 + threadIdx.x;
+    const int py = box.y0 + threadIdx.y;
+    const int row = py - y0;
+    const float pxf = static_cast<float>(px);
+    const float pyf = static_cast<float>(py);
+    float best = 0.0f;  // depth cleared to 0: 1/z > 0 wherever a slot covers
+    int win = -1;
+    const int j1 = kept_before[list_start[k + 1]];
+    for (int j = kept_before[list_start[k]]; j < j1; ++j) {
+      const int s = kept[j];
+      const float ooz = vis_ooz(vis_of_record(rec(s)), px, py, pxf, pyf);
       if (ooz > best) {  // strict: earlier slot wins depth ties
         best = ooz;
         win = s;
       }
     }
+    const float* w = words + max(win, 0) * kFlatRecWords;
+    shade_and_store<kBilinear, kTrackIds>(
+        [&](int r) { return w[flat_word_f32(r)]; },
+        [&](int r) { return __float_as_int(w[flat_word_i32(r)]); }, atlas,
+        num_textures, best, win, px, py, row, width, height, background, pix,
+        depth, gid);
   }
-  shade_and_store<kBilinear, kTrackIds>(
-      trf, tri, atlas, num_textures, S, best, win, f32_frame + win,
-      i32_frame + win, px, py, row, width, height, background, pix, depth, gid);
 }
 
 // Slots staged per chunk of the segmented kernel's lists: 2 x 128 records
@@ -383,7 +595,6 @@ raster_segmented_kernel(const int* __restrict__ ids,
                         int* __restrict__ pix, float* __restrict__ depth,
                         int* __restrict__ gid, int S, int entries, int g,
                         int width, int height, int y0, int background) {
-  constexpr int kWarps = kThreads / 32;
   __shared__ float4 recs[2][kChunk][kRecPieces];  // double buffered
   __shared__ int slots[2][kChunk];
   __shared__ int order[kChunk];
@@ -403,9 +614,8 @@ raster_segmented_kernel(const int* __restrict__ ids,
   const size_t super_tile =
       lists + ntiles + (blockIdx.y / g) * nsx + blockIdx.x / g;
   const int lane = threadIdx.y * kTileW + threadIdx.x;
-  // The tile's first and last pixel column and framebuffer row.
   const int tx0 = blockIdx.x * kTileW, ty0 = y0 + blockIdx.y * kTileH;
-  const int tx1 = tx0 + kTileW - 1, ty1 = ty0 + kTileH - 1;
+  const TileBox box = {tx0, tx0 + kTileW - 1, ty0, ty0 + kTileH - 1};
   const int px = tx0 + threadIdx.x;
   const int row = blockIdx.y * kTileH + threadIdx.y;
   const int py = y0 + row;
@@ -413,60 +623,13 @@ raster_segmented_kernel(const int* __restrict__ ids,
   const int c0 = counts[tile], c1 = c0 + counts[super_tile];
   const int wide = bb_count[frame];
 
-  // Compaction by ballot over the block: returns how many threads keep, and
-  // sets ``at`` to this thread's place among them. The caller syncs before
-  // the next compaction (warp_kept is reused).
-  auto compact = [&](bool keep, int& at) {
-    const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-    if (lane % 32 == 0) warp_kept[lane / 32] = __popc(ballot);
-    __syncthreads();
-    int kept = 0;
-    at = __popc(ballot & ((1u << (lane % 32)) - 1u));
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < lane / 32 ? warp_kept[w] : 0;
-      kept += warp_kept[w];
-    }
-    return kept;
-  };
-
-  // Whether a staged record may cover a pixel of the tile: its bbox meets
-  // the tile, and each edge function is >= 0 somewhere in it. Each edge
-  // function, rounded as the visit rounds it, is monotone in px and in py,
-  // so its largest value over the tile is at the corner its signs pick: a
-  // record failing this covers no pixel here (a NaN keeps it).
-  const float tx0f = static_cast<float>(tx0), tx1f = static_cast<float>(tx1);
-  const float ty0f = static_cast<float>(ty0), ty1f = static_cast<float>(ty1);
-  auto meets = [&](int4 box) {
-    return box.x <= tx1 && box.y >= tx0 && box.z <= ty1 && box.w >= ty0;
-  };
-  auto may_cover = [&](const float4* r) {
-    const float4 a = r[0], b = r[1], c = r[2];
-    auto edge_misses = [&](float w00, float dx, float dy) {
-      return (w00 + (dx >= 0.0f ? tx1f : tx0f) * dx)
-                 + (dy >= 0.0f ? ty1f : ty0f) * dy < 0.0f;
-    };
-    return meets(reinterpret_cast<const int4*>(r)[3])
-           && !edge_misses(a.x, a.w, b.z) && !edge_misses(a.y, b.x, b.w)
-           && !edge_misses(a.z, b.y, c.x);
-  };
-
-  // The order-independent form of the strict '>' over ascending slots. The
-  // record r: r[0] = (w00.x, w00.y, w00.z, dx.x), r[1] = (dx.y, dx.z, dy.x,
-  // dy.y), r[2] = (dy.z, rvz.x, rvz.y, rvz.z), r[3] = the bbox; each edge
-  // function rounds as (w00 + px*dx) + py*dy, as the plain version does.
+  // The order-independent form of the strict '>' over ascending slots.
   const float pxf = static_cast<float>(px);
   const float pyf = static_cast<float>(py);
   float best = 0.0f;
   int win = -1;
   auto visit = [&](int s, const float4* r) {
-    const float4 a = r[0], b = r[1], c = r[2];
-    const int4 box = reinterpret_cast<const int4*>(r)[3];
-    const float w0 = a.x + pxf * a.w + pyf * b.z;
-    const float w1 = a.y + pxf * b.x + pyf * b.w;
-    const float w2 = a.z + pxf * b.y + pyf * c.x;
-    const bool cover = w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f && px >= box.x
-                       && px <= box.y && py >= box.z && py <= box.w;
-    const float ooz = cover ? w0 * c.y + w1 * c.z + w2 * c.w : 0.0f;
+    const float ooz = vis_ooz(vis_of_record(r), px, py, pxf, pyf);
     if (ooz > best || (ooz == best && ooz > 0.0f && s < win)) {
       best = ooz;
       win = s;
@@ -483,9 +646,9 @@ raster_segmented_kernel(const int* __restrict__ ids,
   if (wide > kChunk) {
     do {
       const int i = r + lane;
-      const bool hit = i < wide && meets(bb_box[i]);
+      const bool hit = i < wide && box_meets(bb_box[i], box);
       int at;
-      const int kept = compact(hit, at);
+      const int kept = block_compact(hit, lane, warp_kept, at);
       if (hit) hits[nh + at] = bb[i];
       __syncthreads();  // hits complete; warp_kept free again
       nh += kept;
@@ -526,9 +689,10 @@ raster_segmented_kernel(const int* __restrict__ ids,
       cp_async_wait(c < chunks);  // chunk c - 1's copies have landed ...
       __syncthreads();            // ... in every thread
       // The records that may cover a pixel, compacted by ballot.
-      const bool keep = lane < m && may_cover(recs[buf][lane]);
+      const bool keep =
+          lane < m && tile_may_cover(vis_of_record(recs[buf][lane]), box);
       int at;
-      const int kept = compact(keep, at);
+      const int kept = block_compact(keep, lane, warp_kept, at);
       if (keep) order[at] = lane;
       __syncthreads();
       for (int j = 0; j < kept; ++j) {
@@ -539,17 +703,38 @@ raster_segmented_kernel(const int* __restrict__ ids,
     }
     m = staged;
   }
+  const int f = f32_frame + win, i = i32_frame + win;
   shade_and_store<kBilinear, kTrackIds>(
-      trf, tri, atlas, num_textures, S, best, win, f32_frame + win,
-      i32_frame + win, px, py, row, width, height, background, pix, depth, gid);
+      [&](int r) { return trf[r * S + f]; },
+      [&](int r) { return tri[r * S + i]; }, atlas, num_textures, best, win,
+      px, py, row, width, height, background, pix, depth, gid);
 }
 
 bool bad_frame(int frames, int width, int height, int S) {
   return frames <= 0 || frames > 65535 || width <= 0 || height <= 0 || S < 0;
 }
 
+// The segmented kernels' grid: one block a tile.
 dim3 tile_grid(int frames, int width, int height) {
   return dim3((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH,
+              frames);
+}
+
+// The flat kernels' grid: each frame's tiles dealt to blocks of at most
+// kFlatTiles tiles, and no more tiles a block than it takes for the
+// launch's blocks to fill the card's SMs once (a band or a small frame gets
+// more blocks of fewer tiles).
+dim3 flat_grid(int frames, int width, int height) {
+  const dim3 tiles = tile_grid(frames, width, height);
+  const long long ntiles = static_cast<long long>(tiles.x) * tiles.y;
+  int device = 0, sms = 1;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long slots = static_cast<long long>(sms) * kFlatBlocksPerSM;
+  const long long per_block =
+      std::min<long long>(kFlatTiles, std::max<long long>(
+          1, (ntiles * frames + slots - 1) / slots));
+  return dim3(static_cast<unsigned>((ntiles + per_block - 1) / per_block), 1,
               frames);
 }
 
@@ -559,7 +744,7 @@ void start_flat(const void* counts, const void* ids, const void* trf,
                 void* gid, int frames, int S, int num_textures, int width,
                 int height, int y0, int background, void* stream) {
   raster_flat_kernel<kBilinear, kTrackIds>
-      <<<tile_grid(frames, width, height), dim3(kTileW, kTileH), 0,
+      <<<flat_grid(frames, width, height), dim3(kTileW, kTileH), 0,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int*>(counts), static_cast<const int*>(ids),
           static_cast<const float*>(trf), static_cast<const int*>(tri),
@@ -568,13 +753,14 @@ void start_flat(const void* counts, const void* ids, const void* trf,
           y0, background);
 }
 
-// A null gid selects the kernel without the gid plane.
+// A null gid selects the kernel without the gid plane. At most
+// kFlatMaxSlots slots: a frame's rows fit the block's shared memory.
 template <bool kBilinear>
 int launch_flat(const void* counts, const void* ids, const void* trf,
                 const void* tri, const void* atlas, void* pix, void* depth,
                 void* gid, int frames, int S, int num_textures, int width,
                 int height, int y0, int background, void* stream) {
-  if (bad_frame(frames, width, height, S) || y0 < 0) {
+  if (bad_frame(frames, width, height, S) || S > kFlatMaxSlots || y0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (gid) {
@@ -642,11 +828,12 @@ int launch_segmented(const void* ids, const void* starts, const void* counts,
 
 }  // namespace
 
-// Each entry point launches its kernel on ``stream`` over a
-// ceil(W/kTileW) x ceil(H/kTileH) x frames grid, covering framebuffer rows
-// [y0, y0 + H), and returns cudaGetLastError() (0 when the launch was
-// accepted). Per-frame inputs and outputs are frame-major: frame b's are at b
-// times one frame's size. With a non-null gid the tracking form also writes
+// Each entry point launches its kernel on ``stream``, one block a tile (the
+// segmented kernels) or up to kFlatTiles tiles (the flat ones, at most
+// kFlatMaxSlots slots) of each frame, covering framebuffer rows [y0, y0 + H),
+// and returns cudaGetLastError() (0 when the launch was accepted). Per-frame
+// inputs and outputs are frame-major: frame b's are at b times one frame's
+// size. With a non-null gid the tracking form also writes
 // the winners' gids there; with a null gid it is the kernel without them.
 extern "C" int raster_flat_nearest(const void* counts, const void* ids,
                                    const void* trf, const void* tri,

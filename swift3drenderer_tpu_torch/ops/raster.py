@@ -11,9 +11,11 @@ scenes (at most FLAT_MAX_SLOTS slots) bin flat: each tile's list holds, in
 ascending order, the live slots whose bbox touches it. Larger scenes bin in
 segments: a tile walks its own segment of one sorted (tile, slot) entry array
 and the broadband slots whose bbox touches it. Each kernel (csrc/raster.cu)
-runs one thread block per tile and frame and one thread per pixel:
-visibility over the tile's lists, then the winner's shading and texel fetch,
-all in one launch as on the TPU, for any scene size.
+runs one thread per pixel of a tile, one block per tile and frame (the
+segmented kernels) or per up to 16 tiles spread over a frame (the flat ones,
+which copy the table columns of the slots those tiles list into shared
+memory once): visibility over the tile's lists, then the winner's shading
+and texel fetch, all in one launch as on the TPU, for any scene size.
 
 Camera batches. Every function here takes an optional leading batch axis B
 on its per-frame inputs (setup arrays (B, S, ...), tables (B, 43, S), ...)
@@ -67,14 +69,16 @@ SAMPLINGS = ("nearest", "bilinear")
 
 # The port's pixel tile: one warp spans one 32-pixel row, so output stores
 # coalesce; 1080 and 2160 are multiples of 8, so the common frames have no
-# ragged tiles. Thread block = one tile; csrc/raster.cu fixes the same shape
-# (kTileW, kTileH).
+# ragged tiles. A thread block draws one tile at a time; csrc/raster.cu
+# fixes the same shape (kTileW, kTileH).
 TILE_W, TILE_H = 32, 8
 
 # Scenes of at most FLAT_MAX_SLOTS slots take the flat kernels; larger ones
 # the segmented front-end and kernels. The same scenes take the same form in
 # the JAX package (S + 3 <= 128, raster_pallas.py:1477; its other condition,
-# B * ntiles <= 512, answers the TPU's SMEM and does not change winners).
+# B * ntiles <= 512, answers the TPU's SMEM and does not change winners). The
+# flat kernels stage the table columns of up to this many slots in shared
+# memory (csrc/raster.cu's kFlatMaxSlots).
 FLAT_MAX_SLOTS = 125
 
 # Tiles a slot's bbox may cover before the segmented binner sends it to the
@@ -359,6 +363,32 @@ def _binned_slots(counts: torch.Tensor, ids: torch.Tensor) -> list:
     return torch.unique(ids[pos < counts]).tolist()
 
 
+def tile_cull_plain(counts: torch.Tensor, ids: torch.Tensor,
+                    trf: torch.Tensor, tri: torch.Tensor, *, width: int,
+                    height: int, y_offset: int = 0) -> torch.Tensor:
+    """The flat kernels' per-tile cull (csrc/raster.cu::tile_may_cover) over
+    one frame's lists: (ntiles, S) bool, True where entry j of a tile's list
+    (``ids`` order) is listed and survives: its bbox meets the tile and none
+    of its edge functions, rounded as the visit rounds them, is negative at
+    the tile corner its signs pick (the largest value it takes over the
+    tile; a NaN survives). A culled slot covers no pixel of its tile, so the
+    plain versions need no cull; this is for tests and measurements."""
+    dev = trf.device
+    ntx = _cdiv(width, TILE_W)
+    t = torch.arange(counts.shape[0], device=dev)[:, None]
+    s = ids.long()
+    x0, y0 = t % ntx * TILE_W, t // ntx * TILE_H + y_offset
+    x1, y1 = x0 + TILE_W - 1, y0 + TILE_H - 1
+    listed = torch.arange(ids.shape[1], device=dev)[None, :] < counts
+    keep = (listed & (tri[_XMIN][s] <= x1) & (tri[_XMAX][s] >= x0)
+            & (tri[_YMIN][s] <= y1) & (tri[_YMAX][s] >= y0))
+    for k in range(3):
+        w00, dx, dy = (trf[r + k][s] for r in (_W00, _DX, _DY))
+        keep &= ~((w00 + torch.where(dx >= 0, x1, x0).to(torch.float32) * dx)
+                  + torch.where(dy >= 0, y1, y0).to(torch.float32) * dy < 0)
+    return keep
+
+
 def _check_gid_order(tri: torch.Tensor, slots: torch.Tensor) -> None:
     """The tracking forms' precondition, on one frame's binned slots
     (ascending): their row-_GID values ascend too. The kernels keep the
@@ -419,7 +449,12 @@ def _pack(sh, r, g, b):
 
 
 def _rsqrt3(x, y, z):
-    return 1.0 / torch.sqrt(x * x + y * y + z * z)
+    """1 / sqrt(x*x + y*y + z*z) with the square root correctly rounded, as
+    the kernels' sqrtf and XLA round it. torch.sqrt on the CPU is not on
+    every build (an AVX-512 build of torch 2.13 is 1 ulp low on some of a
+    stress frame's normalisations); a float64 square root rounded to
+    float32 is correctly rounded for every float32 input."""
+    return 1.0 / torch.sqrt((x * x + y * y + z * z).double()).float()
 
 
 def _shade_winners(best: torch.Tensor, win: torch.Tensor, trf: torch.Tensor,
@@ -751,7 +786,7 @@ def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
             width: int, height: int, background: int, y_offset: int,
             track_ids: bool):
     """Allocate the (..., H, W) outputs and launch ``wrapper``'s kernel on
-    the tensors' card over a (ntx, nty, B) grid, in its tracking form when
+    the tensors' card over the frames' tiles, in its tracking form when
     ``track_ids`` (a gid plane is passed) or not (a null pointer); raise if
     the launch was refused, else count it."""
     dev = textures.device
@@ -786,6 +821,11 @@ def _raster_flat(wrapper, sampling, counts, ids, trf, tri, textures, *,
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
     _check_band(y_offset)
     lead, s = _frame_dims(trf)
+    if s > FLAT_MAX_SLOTS:
+        raise ValueError(f"{wrapper.__name__}: {s} slots, past the flat "
+                         f"kernels' {FLAT_MAX_SLOTS} (a frame's rows stay in "
+                         "shared memory); bin_segments and the segmented "
+                         "kernels take any S")
     ntiles = _cdiv(width, TILE_W) * _cdiv(height, TILE_H)
     _check(counts, "counts", torch.int32, (*lead, ntiles, 1), dev)
     _check(ids, "ids", torch.int32, (*lead, ntiles, s), dev)
@@ -806,7 +846,8 @@ def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
 
     counts (..., ntiles, 1) i32 and ids (..., ntiles, S) i32 from
     ``bin_triangles`` at TILE_W x TILE_H (with the same ``y_offset``); trf
-    (..., 43, S) f32 and tri (..., 7, S) i32 from ``pack_setup_tables``;
+    (..., 43, S) f32 and tri (..., 7, S) i32 from ``pack_setup_tables``,
+    at most FLAT_MAX_SLOTS slots on the card;
     textures (NT, 512, 512) i32, shared by every frame. The leading axis,
     where present, is the batch B. Returns (pixels (..., H, W) int32 holding
     0x00RRGGBB, depth (..., H, W) f32 = 1/z, 0 where empty) for framebuffer

@@ -14,7 +14,8 @@ per mode as the tool does:
 
 A mode that fails raises: nothing is caught, and nothing falls back.
 
-``seg_variants`` is a measurement of the port's own: builds of the segmented
-raster kernels with one constant changed, timed against the default build on
-the card (``python -m swift3drenderer_tpu_torch.tools.seg_variants``).
+``seg_variants`` is a measurement of the port's own: builds of the raster
+kernels (segmented and flat) with one constant changed, timed against the
+default build on the card
+(``python -m swift3drenderer_tpu_torch.tools.seg_variants``).
 """

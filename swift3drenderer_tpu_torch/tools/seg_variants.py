@@ -1,14 +1,17 @@
-"""Builds of the segmented raster kernels that differ from the default in one
-constant of ``csrc/raster.cu``, timed against it on the card.
+"""Builds of the raster kernels that differ from the default in one constant
+of ``csrc/raster.cu``, timed against it on the card.
 
     python -m swift3drenderer_tpu_torch.tools.seg_variants
 
 Each variant is a copy of the package under ``_build/variants/<name>/`` whose
 ``csrc/raster.cu`` has one constant rewritten (``VARIANTS``), imported as a
 package of its own, so that its kernels build from that copy into that
-copy's ``_build/`` and nothing of this package is changed. On stress 840 at
-1920x1080 and 3840x2160 and on stress100k at 1920x1080 (pose 0 of bench.py's
-flight), each variant's ``raster_segmented_nearest`` and ``_bilinear`` frame
+copy's ``_build/`` and nothing of this package is changed. A variant of a
+segmented constant is timed on the segmented kernels: stress 840 at
+1920x1080 and 3840x2160 and stress100k at 1920x1080; of a flat one
+(``kFlat...``) on the flat kernels: the default scene at both sizes and in a
+B = 4 batch at 1920x1080, and the icosahedron at 1920x1080 (pose 0 of
+bench.py's flight, the batch its first four poses). Each variant's frame
 must equal the default build's bit for bit; then both are timed with the L2
 cold in turns default, variants, variants reversed, default. Prints each
 build's ptxas register and spill lines and one JSON line per (cell,
@@ -39,10 +42,36 @@ VARIANTS = {
     "chunk 256": ("constexpr int kChunk = 128;", "constexpr int kChunk = 256;"),
     "8 blocks a SM": ("constexpr int kSegmentedBlocksPerSM = 6;",
                       "constexpr int kSegmentedBlocksPerSM = 8;"),
+    "flat 1 tile": ("constexpr int kFlatTiles = 16;",
+                    "constexpr int kFlatTiles = 1;"),
+    "flat 4 tiles": ("constexpr int kFlatTiles = 16;",
+                     "constexpr int kFlatTiles = 4;"),
+    "flat 8 tiles": ("constexpr int kFlatTiles = 16;",
+                     "constexpr int kFlatTiles = 8;"),
+    "flat 32 tiles": ("constexpr int kFlatTiles = 16;",
+                      "constexpr int kFlatTiles = 32;"),
+    "flat 4 blocks a SM": ("constexpr int kFlatBlocksPerSM = 6;",
+                           "constexpr int kFlatBlocksPerSM = 4;"),
+    "flat 8 blocks a SM": ("constexpr int kFlatBlocksPerSM = 6;",
+                           "constexpr int kFlatBlocksPerSM = 8;"),
 }
-CELLS = (("stress840", 1920, 1080), ("stress840", 3840, 2160),
-         ("stress100k", 1920, 1080))
+# (route, scene, sampling, width, height, frames)
+CELLS = tuple(("segmented", scene, sampling, w, h, 1)
+              for scene, w, h in (("stress840", 1920, 1080),
+                                  ("stress840", 3840, 2160),
+                                  ("stress100k", 1920, 1080))
+              for sampling in ("nearest", "bilinear"))
+CELLS += tuple(("flat", "default", sampling, w, h, 1)
+               for w, h in ((1920, 1080), (3840, 2160))
+               for sampling in ("nearest", "bilinear"))
+CELLS += (("flat", "icosahedron", "bilinear", 1920, 1080, 1),
+          ("flat", "default", "nearest", 1920, 1080, 4))
 STRESS_OBJECTS = 840          # bench.py's stress row: 10,083 triangles
+
+
+def route_of(name: str) -> str:
+    """The kernels variant ``name`` changes: "flat" or "segmented"."""
+    return "flat" if "kFlat" in VARIANTS[name][0] else "segmented"
 
 
 def variant_source(name: str) -> str:
@@ -117,38 +146,48 @@ def main() -> list:
             if "registers" in line or "spill" in line:
                 print(f"  {line.strip()}")
 
-    m = Camera().update(Input(up=1.0, mouse=(0.0, 0.0)), force_update=True)
+    cam = Camera()
+    poses = [cam.update(Input(up=1.0, mouse=(2.0 * i, 0.0)),
+                        force_update=(i == 0)).copy() for i in range(4)]
     scenes = {"stress840": SCENES["stress"](seed=0, objects=STRESS_OBJECTS),
-              "stress100k": SCENES["stress100k"](seed=0)}
-    order = list(builds) + list(builds)[::-1]
+              "stress100k": SCENES["stress100k"](seed=0),
+              "default": SCENES["default"](seed=0),
+              "icosahedron": SCENES["icosahedron"](seed=0)}
     out = []
-    for scene, width, height in CELLS:
+    for route, scene, sampling, width, height, frames in CELLS:
         arr = scene_to_device(scenes[scene], "cuda")
-        setup = build_setup(arr, torch.as_tensor(np.asarray(m), device="cuda"),
+        m = np.stack(poses[:frames]) if frames > 1 else poses[0]
+        setup = build_setup(arr, torch.as_tensor(m, device="cuda"),
                             width=width, height=height, config=DEFAULT_CONFIG)
-        args = (*raster.bin_segments(setup, width=width, height=height),
-                *raster.pack_setup_tables(setup), raster.pack_slot_records(setup),
-                arr["textures"])
+        tables = raster.pack_setup_tables(setup)
+        if route == "flat":
+            args = (*raster.bin_triangles(setup, width=width, height=height,
+                                          tile_h=raster.TILE_H,
+                                          tile_w=raster.TILE_W)[::-1],
+                    *tables, arr["textures"])
+        else:
+            args = (*raster.bin_segments(setup, width=width, height=height),
+                    *tables, raster.pack_slot_records(setup), arr["textures"])
         kw = dict(width=width, height=height,
                   background=DEFAULT_CONFIG.background_packed)
-        for sampling in ("nearest", "bilinear"):
-            kernel = f"raster_segmented_{sampling}"
-            want = getattr(raster, kernel)(*args, **kw)
-            spans = {name: [] for name in builds}
-            for name in order:
-                launch = getattr(builds[name], kernel)
-                got = launch(*args, **kw)
-                if not all(torch.equal(a, b) for a, b in zip(got, want)):
-                    raise AssertionError(f"{name} build of {kernel} differs "
-                                         f"from the default on {scene} "
-                                         f"{width}x{height}")
-                spans[name].append(time_cold_ms(lambda: launch(*args, **kw)))
-            ms = {name: statistics.median(v) for name, v in spans.items()}
-            res = {"scene": scene, "at": f"{width}x{height}",
-                   "sampling": sampling, "ms": ms,
-                   "ratio": {name: ms[name] / ms["default"] for name in ms}}
-            out.append(res)
-            print(f"variant: {json.dumps(res)}", flush=True)
+        kernel = f"raster_{route}_{sampling}"
+        names = ["default"] + [n for n in loaded if route_of(n) == route]
+        want = getattr(raster, kernel)(*args, **kw)
+        spans = {name: [] for name in names}
+        for name in names + names[::-1]:
+            launch = getattr(builds[name], kernel)
+            got = launch(*args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} build of {kernel} differs "
+                                     f"from the default on {scene} "
+                                     f"{width}x{height} B={frames}")
+            spans[name].append(time_cold_ms(lambda: launch(*args, **kw)))
+        ms = {name: statistics.median(v) for name, v in spans.items()}
+        res = {"scene": scene, "at": f"{width}x{height}", "batch": frames,
+               "kernel": kernel, "ms": ms,
+               "ratio": {name: ms[name] / ms["default"] for name in ms}}
+        out.append(res)
+        print(f"variant: {json.dumps(res)}", flush=True)
     return out
 
 

@@ -26,6 +26,11 @@ from swift3drenderer_tpu_torch.renderer import (build_setup, render_frames,
 
 from conftest import pixel_mismatch_fraction
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 W, H = 160, 96
 LAUNCHES = (tr.raster_flat_nearest, tr.raster_flat_bilinear,
             tr.raster_segmented_nearest, tr.raster_segmented_bilinear)

@@ -37,6 +37,11 @@ from swift3drenderer_tpu_torch.utils.ripmap import level_offset
 
 from conftest import pixel_mismatch_fraction
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 JAX_BILINEAR = dataclasses.replace(JAX_DEFAULT, sampling="bilinear")
 BILINEAR = port.RenderConfig(sampling="bilinear")
 BG = port.DEFAULT_CONFIG.background_packed

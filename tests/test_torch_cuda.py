@@ -2,7 +2,8 @@
 ``raster_segmented_nearest``, ``raster_flat_bilinear`` and
 ``raster_segmented_bilinear`` and their tracking forms against their plain
 PyTorch versions, batched launches against single ones, stitched bands
-against full frames, the segmented kernels' super-tile lists, staged
+against full frames, the flat kernels' culled tiles, depth ties, slot limit
+and runs of tiles, the segmented kernels' super-tile lists, staged
 slot records and residual filter at several K and G, and the CUDA renderer (single frames and
 ``render_batch``) against the CPU one, on the default scene and on a stress
 field (3,078 slots, the segmented path); and the probes of
@@ -366,6 +367,63 @@ def test_segmented_residual_filter_matches_plain_on_cuda(sampling):
                 assert torch.equal(a, b), (s, track)
             assert bool((got[1] > 0).any())
     assert most[0] < 768 < most[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_flat_kernel_edges_match_plain_on_cuda(sampling):
+    """The flat kernel (listed slots' table columns in shared memory, listed
+    slots culled per tile, several tiles a block) against its plain version
+    on the card, bit for bit, pixels, depth and gids, untracked and tracked,
+    each case a batch whole and on a band at y0 > 0: the default scene (S =
+    102, not a multiple of 4), with tiles whose listed slots are all culled;
+    its slots with the first 23 again (S = 125, and depth ties the earlier
+    slot must win); a B = 4 batch at the ragged 333x217 (a block's tiles lie
+    in one frame); the band on that ragged
+    width; and the live slots repeated, each bbox the whole frame, so that
+    a block culls hundreds of listed slots in several rounds. More than 125
+    slots are refused."""
+    need_card()
+    kernel = getattr(tr, f"raster_flat_{sampling}")
+    plain = getattr(tr, f"raster_flat_{sampling}_plain")
+    w, h = W, H
+    dev, two = setups_on_card("default", flight(8)[::4], w, h)
+    one = {k: v[0] for k, v in two.items()}
+    counts, ids = binned_for("flat", one, w, h)
+    keep = tr.tile_cull_plain(counts, ids, *tables_for("flat", one), width=w,
+                              height=h)
+    assert bool(((counts[:, 0] > 0) & ~keep.any(dim=1)).any())
+    dup = {k: torch.cat([v, v[:, :23]], dim=1) for k, v in two.items()}
+    _, four = setups_on_card("default", flight(16)[::4], *RAGGED)
+    live = torch.nonzero(one["live"])[:, 0]
+    wide = {k: v[live.repeat(tr.FLAT_MAX_SLOTS // live.numel())]
+            for k, v in one.items()}
+    wide.update(xmin=torch.zeros_like(wide["xmin"]),
+                xmax=torch.full_like(wide["xmax"], w - 1),
+                ymin=torch.zeros_like(wide["ymin"]),
+                ymax=torch.full_like(wide["ymax"], h - 1))
+    assert int(wide["live"].sum()) > 64      # > 256 listed in 4 tiles
+    cases = [(two, w, h), (dup, w, h), (four, *RAGGED), (wide, w, h)]
+    for setup, cw, ch in cases:
+        s = setup["live"].shape[-1]
+        gids = 1000 + torch.arange(s, dtype=torch.int32, device="cuda")
+        for track in (False, True):
+            for y0, rows in ((0, ch), (61, 100)):
+                args = (*binned_for("flat", setup, cw, rows, y0),
+                        *tables_for("flat", setup, gids if track else None),
+                        dev["textures"])
+                kw = dict(width=cw, height=rows, background=BG, y_offset=y0,
+                          track_ids=track)
+                got, want = kernel(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (s, cw, y0, track)
+                if track and s == 125 and y0 == 0:
+                    assert bool(((want[2] >= 1000) & (want[2] < 1023)).any())
+    big = {k: torch.cat([v, v[:, :24]], dim=1) for k, v in two.items()}
+    with pytest.raises(ValueError):
+        kernel(*binned_for("flat", big, w, h), *tables_for("flat", big),
+               dev["textures"], width=w, height=h, background=BG)
 
 
 PROBE_ITERS = (1, 3, 64, 130)   # and each tool's full ITERS

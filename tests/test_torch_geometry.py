@@ -27,6 +27,11 @@ from swift3drenderer_tpu_torch.ops import setup as tsetup
 from swift3drenderer_tpu_torch.ops import vertex as tvertex
 from swift3drenderer_tpu_torch.renderer import build_setup as tbuild_setup
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 EXACT_KEYS = {"live", "tex", "is_tex", "xmin", "xmax", "ymin", "ymax", "valid"}
 W, H = 320, 240

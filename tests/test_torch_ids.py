@@ -40,6 +40,11 @@ from swift3drenderer_tpu_torch.renderer import scene_to_device as port_to_device
 from conftest import pixel_mismatch_fraction
 from test_torch_segmented import check_segment_lists
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 BG = DEFAULT_CONFIG.background_packed
 
 

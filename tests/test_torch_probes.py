@@ -29,6 +29,11 @@ from swift3drenderer_tpu_torch.tools import probe_dynamic_grid as pdg
 from swift3drenderer_tpu_torch.tools import probe_gather2d as pg2
 from swift3drenderer_tpu_torch.tools import probe_packed_fetch as ppf
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                      "tools")
 

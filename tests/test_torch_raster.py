@@ -32,6 +32,11 @@ from swift3drenderer_tpu_torch.ops import texture as ttexture
 
 from conftest import pixel_mismatch_fraction
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 W, H = 320, 240
 BG = DEFAULT_CONFIG.background_packed
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -260,6 +265,43 @@ def test_texel_boundary_pose_within_golden_bound(both_rasters, tmp_path):
     np.testing.assert_array_equal(pix, pn)
     np.testing.assert_array_equal(depth, dn)
     np.testing.assert_array_equal(win, np.where(dn > 0, gn, -1))
+
+
+@pytest.mark.parametrize("y0", [0, 61])
+def test_tile_cull_drops_only_slots_that_cover_no_pixel(default_frames, y0):
+    """The flat kernels' per-tile cull (csrc/raster.cu::tile_may_cover, as
+    ``tile_cull_plain``) on the default scene's frames, whole and on a band
+    at y0 > 0: every listed slot it drops covers no pixel of its tile at the
+    visit's own rounding; it drops some, and every listed slot of some
+    tiles."""
+    _, frames = default_frames
+    rows = H - y0 - 40 if y0 else H
+    ntx = -(-W // tr.TILE_W)
+    lane = torch.arange(tr.TILE_W * tr.TILE_H)
+    whole = 0
+    for setup in frames:
+        st = to_torch(setup)
+        ids, counts = tr.bin_triangles(st, width=W, height=rows,
+                                       tile_h=tr.TILE_H, tile_w=tr.TILE_W,
+                                       y_offset=y0)
+        trf, tri = tr.pack_setup_tables(st)
+        keep = tr.tile_cull_plain(counts, ids, trf, tri, width=W,
+                                  height=rows, y_offset=y0)
+        listed = torch.arange(ids.shape[1])[None, :] < counts
+        assert bool((keep <= listed).all())
+        whole += int(((counts[:, 0] > 0) & ~keep.any(dim=1)).sum())
+        tiles, j = torch.nonzero(listed & ~keep, as_tuple=True)
+        s = ids[tiles, j].long()
+        px = (tiles % ntx * tr.TILE_W)[:, None] + lane % tr.TILE_W
+        py = (tiles // ntx * tr.TILE_H)[:, None] + lane // tr.TILE_W + y0
+        f, i = trf[:, s, None], tri[:, s, None]
+        cover = ((px >= i[tr._XMIN]) & (px <= i[tr._XMAX])
+                 & (py >= i[tr._YMIN]) & (py <= i[tr._YMAX]))
+        for k in range(3):
+            cover &= (f[tr._W00 + k] + px.float() * f[tr._DX + k]
+                      + py.float() * f[tr._DY + k]) >= 0
+        assert s.numel() > 0 and not bool(cover.any())
+    assert whole > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])

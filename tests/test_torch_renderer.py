@@ -30,6 +30,11 @@ from swift3drenderer_tpu_torch.renderer import scene_to_device
 
 from conftest import pixel_mismatch_fraction
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 W, H = 320, 240
 
 

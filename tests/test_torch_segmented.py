@@ -35,6 +35,11 @@ from swift3drenderer_tpu_torch.tools import seg_variants
 
 from conftest import pixel_mismatch_fraction
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 BG = DEFAULT_CONFIG.background_packed
 
 
@@ -331,3 +336,45 @@ def test_segmented_plain_matches_pallas_multipass(stress128):
     pix, depth, _ = stress128["port"]
     np.testing.assert_array_equal(depth > 0, dj > 0)
     assert_within_bounds(pix, depth, pj, dj, stress128["golden"])
+
+
+def test_shading_sqrt_is_correctly_rounded_at_1_and_8_threads():
+    """ROADMAP queue 3 item 5: the plain shading's normalisations
+    (``_rsqrt3``) on a stress_scene(objects=128) frame at 320x240, the
+    inputs that showed one channel step between CPU runs, computed at 1 and
+    at 8 threads: equal to each other and to 1 / the correctly rounded
+    float32 square root (numpy's), bit for bit, as the kernels' sqrtf gives
+    it. torch.sqrt on the CPU is not correctly rounded on every build."""
+    dev = port_to_device(PORT_SCENES["stress"](seed=0, objects=128), "cpu")
+    m = port.Camera().update(port.Input(up=1.0), force_update=True)
+    w, h = 320, 240
+    setup = port_build_setup(dev, torch.as_tensor(m), width=w, height=h,
+                             config=port.DEFAULT_CONFIG)
+    trf, tri = tr.pack_setup_tables(setup)
+    best, win = tr.visibility_segmented_plain(
+        *tr.bin_segments(setup, width=w, height=h), trf, tri, width=w,
+        height=h)
+    yy, xx = torch.nonzero(win >= 0, as_tuple=True)
+    s, inv = win[yy, xx].long(), 1.0 / best[yy, xx]
+
+    def col(r):
+        return trf[r][s]
+
+    t = [(col(tr._W00 + k) + xx.float() * col(tr._DX + k)
+          + yy.float() * col(tr._DY + k)) * inv for k in range(3)]
+    vecs = [[col(base + k) * t[0] + col(base + 3 + k) * t[1]
+             + col(base + 6 + k) * t[2] for k in range(3)]
+            for base in (tr._CVP, tr._NP)]
+    threads = torch.get_num_threads()
+    got = {}
+    try:
+        for n in (1, 8):
+            torch.set_num_threads(n)
+            got[n] = [tr._rsqrt3(*v) for v in vecs]
+    finally:
+        torch.set_num_threads(threads)
+    for v, one, eight in zip(vecs, got[1], got[8]):
+        sq = (v[0] * v[0] + v[1] * v[1] + v[2] * v[2]).numpy()
+        want = torch.from_numpy(np.float32(1.0) / np.sqrt(sq))
+        assert sq.size > 50_000
+        assert torch.equal(one, eight) and torch.equal(one, want)

@@ -30,6 +30,11 @@ from swift3drenderer_tpu_torch.parallel import (
     render_scene_sharded)
 from swift3drenderer_tpu_torch.renderer import render_frame, scene_to_device
 
+# One intra-op thread a process: the suite runs one pytest worker per core,
+# and torch's default of a thread per core in each worker oversubscribes
+# the CPU several times over.
+torch.set_num_threads(1)
+
 WORLD = 8
 SCENE_MESHES = ((1, 2), (1, 4), (1, 6), (1, 8), (2, 4))   # (n_frame, n_fb)
 W, H = 128, 64
