@@ -27,9 +27,12 @@ Phases; any failed check raises and the script exits non-zero:
      tracked; and the flat kernels' edges in all eight forms (tiles whose
      listed slots are all culled, depth ties at S = 125, a batch at a ragged
      size, a band on a ragged width, hundreds of listed slots a block);
-  4. drive the main paths through Renderer(..., device="cuda"), each with the
-     launch counts of all four kernels set to 0 just before and read just
-     after: the default scene and the 840-object stress field over bench.py's
+  4. drive the main paths through Renderer(..., device="cuda"), which
+     captures each frame size and batch in a CUDA graph at its first call
+     and replays it, each with the launch counts of all four kernels set to
+     0 just before and read just after (a wrapper counts the warm-up launch
+     and the captured one of each new graph; replays launch without it, and
+     the renderer counts them): the default scene and the 840-object stress field over bench.py's
      20-pose flight at both sizes, stress100k over its first 5 poses at
      1920x1080; with bilinear sampling the icosahedron scene (config 2) and
      stress 840 at 1920x1080 and the default scene at both sizes; and the
@@ -46,8 +49,8 @@ Phases; any failed check raises and the script exits non-zero:
      840 and stress100k at 1920x1080 and, bilinear, the icosahedron and
      stress 840, and render_batch_sharded's 2 x 4 grid as its eight rank
      blocks: each bit-equal to the single-card render;
-  5. time, with CUDA events after a warm-up: each cell's frame (or batch
-     call), the front-end stages, its kernel (with the L2 cache cold, as a
+  5. time, with CUDA events after a warm-up: each cell's eager frame (or
+     batch call: render_frames launched op by op), the front-end stages, its kernel (with the L2 cache cold, as a
      frame finds it) and plain version, beside the least time the card could
      take for the same work; the segmented binner's tile and super-tile
      entries, residual broadband slots, sort, binner and kernel times for
@@ -70,11 +73,12 @@ Phases; any failed check raises and the script exits non-zero:
      wide slot residual), the splits of both trees, L2 cold,
      and each tree's whole frame (default, stress 840 at both sizes) and
      segmented binning, in turns parent, this, this, parent;
-  6. the share of each flight's wall time the card is busy, each kernel's
-     device time per frame in the flight, and the device-to-host copies the
-     flight makes (must be none), from torch.profiler; each route's device
-     time per frame of the default scene's flight; and the same copy check
-     over the 8-rank composites (per-range pipelines and merges).
+  6. the share of each eager flight's wall time the card is busy, each
+     kernel's device time per frame in the flight, and the device-to-host
+     copies the flight makes (must be none), from torch.profiler; each
+     route's device time per frame of the default scene's flight; and the
+     same copy check over the 8-rank composites (per-range pipelines and
+     merges).
   7. the probes (swift3drenderer_tpu_torch.tools, csrc/probes.cu): each
      probe's main(device="cuda") with its launch count set to 0 just before
      and read just after (every mode checked against the tool's oracle and
@@ -82,7 +86,24 @@ Phases; any failed check raises and the script exits non-zero:
      version on the card, bit for bit, at 1, 3, 64, 130 iterations and the
      full ITERS, and the dynamic grid at nc = 0-4 with nc in device memory;
      torch.profiler shows the dynamic-grid call makes no device-to-host copy;
-     `cuobjdump -sass` counts each instance's global loads inside its loop.
+     `cuobjdump -sass` counts each instance's global loads inside its loop;
+  8. the captured frames (run after phase 5, before the profiles of phase
+     6, which would inflate its host times): every phase 5 cell's replayed
+     flight bit-equal to its eager flight (both routes and samplings,
+     single frames and batches); bucketed frames (Renderer.render(...,
+     bucketed=True)) bit-equal to eager exact-size frames, the default
+     scene at tests/test_resize.py's sizes, 1366x768 and 1920x1080 and
+     stress 840 at 1366x768; the 50-step drag sweep 300x200 -> 790x445 in
+     at most 4 captures, each step bit-equal, and its per-step time; after
+     update_scene, replays bit-equal to a fresh renderer's eager frames on
+     the moved scene; results held across calls still right; then, in
+     turns eager, captured, captured, eager over each cell's flight: frame
+     ms (median, min, max), host µs per replay call, ms per frame back to
+     back; the copy out of the graph's outputs; capture ms and memory
+     reserved per key; the default scene captured through either route;
+     and from torch.profiler each captured flight's busy share, kernels
+     per replayed frame and device-to-host copies and scalar reads (must
+     be none).
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -91,6 +112,7 @@ package beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import statistics
@@ -821,7 +843,8 @@ def run(parent: str | None = None) -> dict:
         Mesh, ShardedRenderer, make_mesh, merge_depth_gid,
         render_batch_sharded, render_scene_sharded)
     from swift3drenderer_tpu_torch.renderer import (
-        Renderer, build_setup, render_range, scene_to_device)
+        Renderer, bucket_dims, build_setup, render_frames, render_range,
+        scene_to_device)
 
     # ---- 2. build ----
     phase("2. build")
@@ -1165,8 +1188,11 @@ def run(parent: str | None = None) -> dict:
         """Render ``runs`` ((width, height), poses): frame by frame, or in
         calls of ``batch`` poses through render_batch, with the four launch
         counts set to 0 just before; check the counts just after against
-        ``want`` ({kernel: launches per call}), each frame, and (batches)
-        each frame against its single-frame render."""
+        ``want`` ({kernel: launches per captured graph}, each counted twice:
+        the graph's warm-up and its capture) and one replay a call, each
+        frame, and (batches) each frame against its single-frame render."""
+        graphs = renderer.graphs
+        captures, replays = graphs.captures, graphs.replays
         reset_launches(raster)
         if batch:
             calls = [((w, h), ms[i:i + batch]) for (w, h), ms in runs
@@ -1182,10 +1208,16 @@ def run(parent: str | None = None) -> dict:
         torch.cuda.synchronize()
         got = read_launches(raster)
         n = len(calls)
+        new = graphs.captures - captures
         print(f"main path {name}: {len(frames)} frames in {n} calls, "
+              f"{new} graphs captured, {graphs.replays - replays} replays, "
               f"launches {json.dumps(got)}", flush=True)
-        check(got == {k: want.get(k, 0) * n for k in FORMS},
-              f"{name}: launches {got} for {n} calls, want {want} per call")
+        check(new >= 1 and graphs.replays - replays == n,
+              f"{name}: {new} captures and {graphs.replays - replays} "
+              f"replays for {n} calls")
+        check(got == {k: 2 * want.get(k, 0) * new for k in FORMS},
+              f"{name}: launches {got} for {new} captures, want {want} "
+              "twice per capture")
         for k in FORMS:
             launches[k] += got[k]
         for (w, h), (pix, depth) in frames:
@@ -1381,25 +1413,28 @@ def run(parent: str | None = None) -> dict:
         step = c["batch"] or 1
         return [c["ms"][i:i + step] for i in range(0, len(c["ms"]), step)]
 
-    def render_call(renderer, ms, width, height, batch):
-        if batch:
-            return renderer.render_batch(np.stack(ms), width, height)
-        return renderer.render_device(ms[0], width, height)
+    def render_call(renderer, ms, width, height, frames=render_frames):
+        """The renderer's frames of the poses ``ms`` launched op by op,
+        without a graph: the matrices copied to the card, then ``frames``
+        (a tree's render_frames)."""
+        return frames(renderer.dev, torch.as_tensor(
+            np.stack(ms), device=dev), width=width, height=height,
+            config=renderer.config)
 
-    def call_times(renderer, calls, width, height, batch):
+    def call_times(renderer, calls, width, height, call=render_call):
         per_call = []
         for ms in calls:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            render_call(renderer, ms, width, height, batch)
+            call(renderer, ms, width, height)
             end.record()
             end.synchronize()
             per_call.append(start.elapsed_time(end))
         return per_call
 
     def frame_times(renderer, ms, width, height):
-        return call_times(renderer, [[m] for m in ms], width, height, 0)
+        return call_times(renderer, [[m] for m in ms], width, height)
 
     for c in cells:
         (width, height), b, sampling = c["size"], c["batch"], c["sampling"]
@@ -1407,7 +1442,7 @@ def run(parent: str | None = None) -> dict:
         arr = renderer.dev
         tex = arr["textures"]
         calls = calls_of(c)
-        per_call = call_times(renderer, calls, width, height, b)
+        per_call = call_times(renderer, calls, width, height)
         first = np.stack(calls[0]) if b else calls[0][0]
         mt = torch.as_tensor(first, device=dev)
         kw = dict(width=width, height=height, background=bg)
@@ -1521,10 +1556,10 @@ def run(parent: str | None = None) -> dict:
 
         flat_f, seg_f = route_flight("flat"), route_flight("segmented")
         seg_f, flat_f = seg_f + route_flight("segmented"), flat_f + route_flight("flat")
-        pf, df = on_route("flat", lambda: renderers["default"].render_device(
-            poses[0], width, height))
-        ps, ds = on_route("segmented", lambda: renderers[
-            "default"].render_device(poses[0], width, height))
+        pf, df = on_route("flat", lambda: render_call(
+            renderers["default"], poses[:1], width, height))
+        ps, ds = on_route("segmented", lambda: render_call(
+            renderers["default"], poses[:1], width, height))
         compare(ps, ds, pf, df, f"default scene frame, segmented vs flat "
                                 f"route {width}x{height}")
         setup, (counts, ids, trf, tri) = flat_tables(poses[0], width, height, arr)
@@ -1556,7 +1591,7 @@ def run(parent: str | None = None) -> dict:
     for width, height in RESOLUTIONS:
         for b in BATCH_SWEEP:
             calls = [poses[i:i + b] for i in range(0, SWEEP_FRAMES, b)]
-            per_call = call_times(renderers["default"], calls, width, height, b)
+            per_call = call_times(renderers["default"], calls, width, height)
             _, args = flat_tables(np.stack(calls[0]), width, height, arr)
             kw = dict(width=width, height=height, background=bg)
             res = {"at": f"{width}x{height}", "batch": b, "calls": len(calls),
@@ -1693,18 +1728,22 @@ def run(parent: str | None = None) -> dict:
                 ab.append(res)
                 print(f"A/B vs parent: {json.dumps(res)}", flush=True)
 
-        # The whole frame against the parent tree's Renderer on the same
-        # scene, the flight in turns parent, this, this, parent; the default
+        # The whole eager frame (each tree's render_frames) against the
+        # parent tree's on the same scene, the flight in turns parent, this,
+        # this, parent; the default
         # scene (the flat route, the same code in both trees) shows what the
         # host's noise alone moves. And the segmented front-end's stages:
         # the parent's bin_segments against this tree's with
         # pack_slot_records, in the same turns.
         import importlib
-        parent_renderer = importlib.import_module("s3d_parent.renderer").Renderer
+        parent_module = importlib.import_module("s3d_parent.renderer")
+        tree_frames = {"parent": parent_module.render_frames,
+                       "this": render_frames}
         for name, (w, h) in (("default", RESOLUTIONS[0]),
                              ("stress840", RESOLUTIONS[0]),
                              ("stress840", RESOLUTIONS[1])):
-            pair = {"parent": parent_renderer(scenes[name], device="cuda"),
+            pair = {"parent": parent_module.Renderer(scenes[name],
+                                                     device="cuda"),
                     "this": renderers[name]}
             setup = setup_of(poses[0], w, h, arrays[name])
             front = {"parent": lambda: trees["parent"].bin_segments(
@@ -1715,7 +1754,10 @@ def run(parent: str | None = None) -> dict:
             spans = {who: [] for who in pair}
             stages = {who: [] for who in pair}
             for who in ("parent", "this", "this", "parent"):
-                spans[who] += frame_times(pair[who], poses, w, h)
+                spans[who] += call_times(
+                    pair[who], [[m] for m in poses], w, h,
+                    call=functools.partial(render_call,
+                                           frames=tree_frames[who]))
                 stages[who].append(time_ms(torch, front[who], 20))
             res = {"scene": name, "at": f"{w}x{h}",
                    **{f"{who}_frame_ms_median": statistics.median(spans[who])
@@ -1742,6 +1784,256 @@ def run(parent: str | None = None) -> dict:
                             {c[0]: arrays[c[0]]["textures"]
                              for c in FLAT_SPLIT_CELLS}, bg)
 
+    # ---- 8. captured frames: before the profiles of phase 6, whose
+    # profiler session would inflate the host times taken after it ----
+    phase("8. captured frames")
+
+    def single_call(renderer, ms, width, height):
+        return renderer.render_device(ms[0], width, height)
+
+    def batch_call(renderer, ms, width, height):
+        return renderer.render_batch(np.stack(ms), width, height)
+
+    def eager_frames(renderer, ms, width, height, batch):
+        """The eager pipeline's output shaped as the captured call's."""
+        pix, depth = render_call(renderer, ms, width, height)
+        return (pix, depth) if batch else (pix[0], depth[0])
+
+    def same(got, want, what):
+        """Bit-equal on the card; else compare() reports and raises."""
+        if not all(tuple(a.shape) == tuple(b.shape) and torch.equal(a, b)
+                   for a, b in zip(got, want)):
+            compare(*got, *want, what)
+
+    def spread(xs):
+        return {"median": statistics.median(xs), "min": min(xs),
+                "max": max(xs)}
+
+    def back_to_back_ms(renderer, calls, width, height, call):
+        """ms per call of the flight's calls issued with no
+        synchronisation between them (CUDA events around all)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for ms in calls:
+            call(renderer, ms, width, height)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / len(calls)
+
+    # Every phase 5 cell: the replayed flight (its graphs captured in phase
+    # 4) bit-equal to the eager flight, then timed in turns.
+    captured = []
+    for c in cells:
+        (width, height), b = c["size"], c["batch"]
+        renderer, calls = renderers[c["renderer"]], calls_of(c)
+        call = batch_call if b else single_call
+        for ms in calls:
+            same(call(renderer, ms, width, height),
+                 eager_frames(renderer, ms, width, height, b),
+                 f"{c['name']} {width}x{height}: captured vs eager frame")
+        fns = {"eager": render_call, "captured": call}
+        spans = {"eager": [], "captured": []}
+        flights = {"eager": [], "captured": []}
+        for who in ("eager", "captured", "captured", "eager"):
+            spans[who] += call_times(renderer, calls, width, height,
+                                     call=fns[who])
+            flights[who].append(back_to_back_ms(renderer, calls, width,
+                                                height, fns[who]))
+        host_us = []
+        torch.cuda.synchronize()
+        for ms in calls:
+            t0 = time.perf_counter()
+            call(renderer, ms, width, height)
+            host_us.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        per = b or 1
+        row = {"scene": c["name"], "at": f"{width}x{height}", "batch": per,
+               "calls": len(calls),
+               "eager_frame_ms": spread([x / per for x in spans["eager"]]),
+               "captured_frame_ms": spread([x / per
+                                            for x in spans["captured"]]),
+               "back_to_back_ms_per_frame": {
+                   who: statistics.median(v) / per
+                   for who, v in flights.items()},
+               "host_us_per_replay_call": statistics.median(host_us),
+               "capture": renderer.graphs.captured[("exact", width, height,
+                                                    per)]}
+        captured.append(row)
+        print(f"captured {c['name']} {width}x{height}: {json.dumps(row)}",
+              flush=True)
+
+    # The copy out of a graph's outputs (what keeps a result the caller's).
+    copy_out = []
+    for name, (width, height), b in (("default", RESOLUTIONS[0], 1),
+                                     ("default", RESOLUTIONS[1], 1),
+                                     ("default", RESOLUTIONS[0], 4)):
+        pix, depth = render_call(renderers[name], poses[:b], width, height)
+        res = {"at": f"{width}x{height}", "batch": b,
+               "ms": time_ms(torch, lambda: (pix.clone(), depth.clone()), 20),
+               "bytes": 2 * pix.numel() * 4}
+        copy_out.append(res)
+        print(f"copy out of a graph's outputs: {json.dumps(res)}", flush=True)
+
+    # Results held across calls stay the caller's.
+    held = [single_call(renderers["default"], [m], *RESOLUTIONS[0])
+            for m in poses[:3]]
+    held_b = [batch_call(renderers["default"], poses[i:i + 4], *RESOLUTIONS[0])
+              for i in (0, 4)]
+    for m, got in zip(poses[:3], held):
+        same(got, eager_frames(renderers["default"], [m], *RESOLUTIONS[0], 0),
+             "a frame held across later calls")
+    for i, got in zip((0, 4), held_b):
+        same(got, eager_frames(renderers["default"], poses[i:i + 4],
+                               *RESOLUTIONS[0], 4),
+             "a batch held across later calls")
+    check(not torch.equal(held[0][0], held[2][0]), "held frames all equal")
+    print("results held across calls: 3 frames and 2 batches still right",
+          flush=True)
+
+    # Bucketed frames against eager exact-size frames.
+    buckets = []
+    for name, sizes in (("default", ((320, 240), (300, 200), (333, 217),
+                                     (512, 384), RAGGED, RESOLUTIONS[0])),
+                        ("stress840", (RAGGED,))):
+        renderer = renderers[name]
+        before = renderer.graphs.captures
+        for width, height in sizes:
+            for pose in (0, FLIGHT_POSES // 2, FLIGHT_POSES - 1):
+                pb, db = renderer.render(poses[pose], width, height,
+                                         bucketed=True)
+                pe, de = render_call(renderer, [poses[pose]], width, height)
+                compare(pb, db, pe[0], de[0], f"{name} {width}x{height} pose "
+                        f"{pose}: bucketed vs exact")
+        res = {"scene": name, "sizes": [f"{w}x{h}" for w, h in sizes],
+               "buckets": sorted({"{}x{}".format(*bucket_dims(w, h))
+                                  for w, h in sizes}),
+               "captures": renderer.graphs.captures - before,
+               "capture": {"{}x{}".format(*k[1:3]): v for k, v in
+                           renderer.graphs.captured.items()
+                           if k[0] == "bucket"}}
+        buckets.append(res)
+        print(f"bucketed vs exact {name}: {json.dumps(res)}", flush=True)
+
+    # The drag-resize sweep of tests/test_resize.py, twice: captures, then
+    # replays only; each step bit-equal to the eager exact-size frame.
+    resize = Renderer(scenes["tetrahedron"], device="cuda")
+    steps = [(300 + 10 * i, 200 + 5 * i) for i in range(50)]
+    sweeps = []
+    for turn in range(2):
+        step_ms = []
+        for i, (width, height) in enumerate(steps):
+            m = poses[i % FLIGHT_POSES]
+            t0 = time.perf_counter()
+            pb, db = resize.render(m, width, height, bucketed=True)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if turn == 0:
+                pe, de = render_call(resize, [m], width, height)
+                compare(pb, db, pe[0], de[0], f"resize step {i} "
+                        f"{width}x{height}: bucketed vs exact")
+        sweeps.append(step_ms)
+    drag = {"steps": len(steps), "captures": resize.graphs.captures,
+            "replays": resize.graphs.replays,
+            "first_sweep_ms": sum(sweeps[0]),
+            "step_ms_after_capture": spread(sweeps[1]),
+            "capture": {"{}x{}".format(*k[1:3]): v
+                        for k, v in resize.graphs.captured.items()}}
+    print(f"drag-resize sweep 300x200 -> 790x445: {json.dumps(drag)}",
+          flush=True)
+    check(resize.graphs.captures <= 4,
+          f"the drag sweep captured {resize.graphs.captures} times")
+
+    # update_scene: graphs captured before it replay the moved scene.
+    moved = scenes["default"].vertices.copy()
+    moved[:, 0] += 0.5
+    normals = scenes["default"].normals[::-1].copy()
+    anim = Renderer(scenes["default"], device="cuda")
+    before = anim.render_device(poses[0], *RESOLUTIONS[0])
+    anim.render_batch(np.stack(poses40[:8]), *CONFIG1)
+    anim.update_scene(vertices=moved, normals=normals)
+    fresh = scene_to_device(dataclasses.replace(
+        scenes["default"], vertices=moved, normals=normals), dev)
+    for i, m in enumerate(poses[:4]):
+        got = anim.render_device(m, *RESOLUTIONS[0])
+        want = render_frames(fresh, torch.as_tensor(m[None], device=dev),
+                             width=RESOLUTIONS[0][0],
+                             height=RESOLUTIONS[0][1], config=cfg)
+        same(got, (want[0][0], want[1][0]), f"update_scene pose {i}")
+        check(i or not torch.equal(got[0], before[0]),
+              "update_scene: the frame did not move")
+    same(anim.render_batch(np.stack(poses40[:8]), *CONFIG1),
+         render_frames(fresh, torch.as_tensor(np.stack(poses40[:8]),
+                                              device=dev),
+                       width=CONFIG1[0], height=CONFIG1[1], config=cfg),
+         "update_scene batch")
+    check(anim.graphs.captures == 2, "update_scene caused a capture")
+    print("update_scene: 4 frames and a B = 8 batch replayed bit-equal to a "
+          "fresh renderer's eager frames on the moved scene", flush=True)
+
+    # The default scene captured through either route (recorded only).
+    route_r = {route: Renderer(scenes["default"], device="cuda")
+               for route in ("flat", "segmented")}
+    for route, r in route_r.items():
+        for width, height in RESOLUTIONS:
+            reset_launches(raster)
+            on_route(route, lambda: r.render_device(poses[0], width, height))
+            got = read_launches(raster)
+            check(got[f"raster_{route}_nearest"] == 2,
+                  f"{route} route capture: launches {got}")
+    captured_routes = []
+    for width, height in RESOLUTIONS:
+        for m in poses:
+            same(single_call(route_r["segmented"], [m], width, height),
+                 single_call(route_r["flat"], [m], width, height),
+                 f"captured default {width}x{height}: segmented vs flat route")
+        spans = {"flat": [], "segmented": []}
+        for route in ("flat", "segmented", "segmented", "flat"):
+            spans[route] += call_times(route_r[route], [[m] for m in poses],
+                                       width, height, call=single_call)
+        res = {"at": f"{width}x{height}",
+               **{f"{route}_captured_frame_ms": spread(v)
+                  for route, v in spans.items()}}
+        captured_routes.append(res)
+        print(f"captured routes default {width}x{height}: {json.dumps(res)}",
+              flush=True)
+
+    # Profiles, last in this phase: the card's busy share, kernels per
+    # replayed call and host copies of each captured flight, and each
+    # route's device time per captured frame.
+    for row, c in zip(captured, cells):
+        (width, height), b = c["size"], c["batch"]
+        renderer, calls = renderers[c["renderer"]], calls_of(c)
+        call = batch_call if b else single_call
+        prof = device_busy(torch, lambda: [call(renderer, ms, width, height)
+                                           for ms in calls])
+        row.update({"device_busy_share": prof["busy"],
+                    "device_kernels_per_call": prof["launched"] / len(calls),
+                    "device_us_per_frame": sum(prof["per_kernel"].values())
+                    / len(c["ms"]),
+                    "d2h_copies": prof["d2h"],
+                    "scalar_reads": prof["scalar_reads"]})
+        print(f"captured profile {c['name']} {width}x{height}: busy "
+              f"{prof['busy']}, {row['device_kernels_per_call']} kernels per "
+              f"replayed call, {row['device_us_per_frame']} device us per "
+              f"frame, device-to-host copies {prof['d2h']}, scalar reads "
+              f"{prof['scalar_reads']}", flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"captured {c['name']} {width}x{height}: copied to the host")
+    for res, (width, height) in zip(captured_routes, RESOLUTIONS):
+        for route, r in route_r.items():
+            prof = device_busy(torch, lambda: [
+                single_call(r, [m], width, height) for m in poses])
+            res[f"{route}_device_us_per_frame"] = (
+                sum(prof["per_kernel"].values()) / len(poses))
+            res[f"{route}_kernels_per_frame"] = prof["launched"] / len(poses)
+            res[f"{route}_busy_share"] = prof["busy"]
+        print(f"captured route profile default {width}x{height}: "
+              f"{json.dumps(res)}", flush=True)
+    captured_summary = {"cells": captured, "copy_out": copy_out,
+                        "bucketed": buckets, "drag_resize": drag,
+                        "routes": captured_routes}
+
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
     phase("6. profiles")
@@ -1749,7 +2041,7 @@ def run(parent: str | None = None) -> dict:
         (width, height), b = c["size"], c["batch"]
         renderer, calls = renderers[c["renderer"]], calls_of(c)
         prof = device_busy(torch, lambda: [
-            render_call(renderer, ms, width, height, b) for ms in calls])
+            render_call(renderer, ms, width, height) for ms in calls])
         nframes = len(c["ms"])
         row["device_busy_share"] = prof["busy"]
         row["device_kernels_per_frame"] = prof["launched"] / nframes
@@ -1781,7 +2073,7 @@ def run(parent: str | None = None) -> dict:
         b = res["batch"]
         calls = [poses[i:i + b] for i in range(0, SWEEP_FRAMES, b)]
         prof = device_busy(torch, lambda: [render_call(
-            renderers["default"], ms, width, height, b) for ms in calls])
+            renderers["default"], ms, width, height) for ms in calls])
         res["device_busy_share"] = prof["busy"]
         res["kernels_per_call"] = prof["launched"] / len(calls)
         res["device_us_per_frame"] = sum(prof["per_kernel"].values()) / SWEEP_FRAMES
@@ -1796,7 +2088,7 @@ def run(parent: str | None = None) -> dict:
     for (width, height), res in routes.items():
         for route in ("flat", "segmented"):
             prof = on_route(route, lambda: device_busy(torch, lambda: [
-                renderers["default"].render_device(m, width, height)
+                render_call(renderers["default"], [m], width, height)
                 for m in poses]))
             res[f"{route}_device_us_per_frame"] = (
                 sum(prof["per_kernel"].values()) / len(poses))
@@ -1919,7 +2211,7 @@ def run(parent: str | None = None) -> dict:
                       "ab_parent": ab or "not measured",
                       "frame_ab_parent": frame_ab or "not measured",
                       "split": split, "flat_split": split_flat,
-                      "seg_sweep": seg_sweep}))
+                      "seg_sweep": seg_sweep, "captured": captured_summary}))
     phase("done")
     print(card)
     print(json.dumps({"kernels": kernels_line}))

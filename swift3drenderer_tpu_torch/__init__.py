@@ -9,7 +9,7 @@ here as copies. Entry points default to ``device="cuda"``; pass
 torch.distributed ranks.
 """
 
-from .camera import Camera, Input
+from .camera import Camera, GamepadState, Input, KeyboardState
 from .config import DEFAULT_CONFIG, RenderConfig
 from .parallel import ShardedRenderer
 from .renderer import Renderer
@@ -18,7 +18,9 @@ from .utils.databin import Scene, dump_scene, load_scene
 __all__ = [
     "Camera",
     "DEFAULT_CONFIG",
+    "GamepadState",
     "Input",
+    "KeyboardState",
     "RenderConfig",
     "Renderer",
     "Scene",

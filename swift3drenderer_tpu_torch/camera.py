@@ -6,8 +6,7 @@ rotation via the shortest-arc quaternion from the old view axis to the new one, 
 4x3 row-major view matrix ``[axis | -axis . position]``.
 
 This runs on the host in float32 NumPy — it is ~30 flops per frame; only the resulting
-(3, 4) matrix crosses to the device. Copy of the camera half of
-``swift3drenderer_tpu.camera``; the input-device state machines wait for the app.
+(3, 4) matrix crosses to the device. Copy of ``swift3drenderer_tpu.camera``.
 """
 
 from __future__ import annotations
@@ -109,3 +108,88 @@ class Camera:
         if changed or force_update:
             self._rebuild()
         return self.matrix
+
+    def pose_state(self) -> dict:
+        """Serializable pose (for checkpoint/resume — absent in the reference,
+        SURVEY.md section 5)."""
+        return {
+            "position": self.position.tolist(),
+            "axis_x": self.axis_x.tolist(),
+            "axis_y": self.axis_y.tolist(),
+            "axis_z": self.axis_z.tolist(),
+            "mouse": self.mouse.tolist(),
+        }
+
+    def load_pose_state(self, state: dict) -> None:
+        self.position = np.asarray(state["position"], dtype=np.float32)
+        self.axis_x = np.asarray(state["axis_x"], dtype=np.float32)
+        self.axis_y = np.asarray(state["axis_y"], dtype=np.float32)
+        self.axis_z = np.asarray(state["axis_z"], dtype=np.float32)
+        self.mouse = np.asarray(state["mouse"], dtype=np.float32)
+        self._rebuild()
+
+
+class KeyboardState:
+    """Maps key state to the Input floats like the reference input layer
+    (reference input.swift:75-93): WASD with shift doubling speed; the mouse value
+    only updates while captured."""
+
+    def __init__(self) -> None:
+        self.keys: set = set()
+        self.mouse_captured = False
+        self.mouse_accum = np.zeros(2, dtype=np.float32)
+        self.quit_requested = False
+
+    def key_event(self, key: str, pressed: bool) -> None:
+        key = key.lower()
+        if pressed:
+            self.keys.add(key)
+        else:
+            self.keys.discard(key)
+        if key == "escape" and pressed:
+            self.quit_requested = True
+
+    def mouse_delta(self, dx: float, dy: float) -> None:
+        if self.mouse_captured:
+            self.mouse_accum += np.array([dx, dy], dtype=np.float32)
+
+    def toggle_capture(self) -> None:
+        self.mouse_captured = not self.mouse_captured
+
+    def update_input(self, inp: Input) -> Input:
+        speed = 2.0 if ("shift" in self.keys) else 1.0  # input.swift:78
+        inp.left = speed if "a" in self.keys else 0.0
+        inp.right = speed if "d" in self.keys else 0.0
+        inp.up = speed if "w" in self.keys else 0.0
+        inp.down = speed if "s" in self.keys else 0.0
+        if self.mouse_captured:
+            inp.mouse = (float(self.mouse_accum[0]), float(self.mouse_accum[1]))
+        return inp
+
+
+class GamepadState:
+    """Dual-thumbstick input mapping — the reference's iOS virtual controller
+    path (reference input.swift:62-92): the left stick maps to the movement
+    floats (left/right from x, up/down from y) and the right stick integrates
+    into the mouse position at 6x scale."""
+
+    MOUSE_SCALE = 6.0  # input.swift:91
+
+    def __init__(self) -> None:
+        self.left_stick = np.zeros(2, dtype=np.float32)
+        self.right_stick = np.zeros(2, dtype=np.float32)
+        self.mouse_accum = np.zeros(2, dtype=np.float32)
+
+    def set_sticks(self, left=(0.0, 0.0), right=(0.0, 0.0)) -> None:
+        self.left_stick = np.asarray(left, dtype=np.float32)
+        self.right_stick = np.asarray(right, dtype=np.float32)
+
+    def update_input(self, inp: Input) -> Input:
+        # input.swift:87-91 — note left/up are the negated stick axes.
+        inp.left = float(-self.left_stick[0])
+        inp.right = float(self.left_stick[0])
+        inp.up = float(self.left_stick[1])
+        inp.down = float(-self.left_stick[1])
+        self.mouse_accum += np.float32(self.MOUSE_SCALE) * self.right_stick
+        inp.mouse = (float(self.mouse_accum[0]), float(self.mouse_accum[1]))
+        return inp

@@ -43,11 +43,15 @@ def clip_prepass(
     n: torch.Tensor,     # (T, 3, 3) camera-space corner normals
     tex: torch.Tensor,   # (T,) texture index or -1
     near: float,
-    factor: float,
-    half_w: float,
-    half_h: float,
+    factor,
+    half_w,
+    half_h,
 ) -> Corners:
-    """Returns corner arrays with leading dim 2T plus a ``valid`` mask (2T,)."""
+    """Returns corner arrays with leading dim 2T plus a ``valid`` mask (2T,).
+    ``factor``, ``half_w`` and ``half_h`` are Python floats or 0-dim float32
+    tensors on the corners' device (``ops.vertex.project``). Every tensor is
+    made on the device, none copied from the host, so the prepass can be
+    captured in a CUDA graph."""
     t = cv.shape[0]
     z = rv[..., 2]                       # (T, 3) view depths
     front = z > near                     # (T, 3)
@@ -98,7 +102,7 @@ def clip_prepass(
     # Appended slot: corners [orig s, crossing nxt, crossing prc]
     # (render.swift:202-222).
     sec_src = torch.stack([s, nxt, prc], dim=1)              # (T, 3)
-    sec_use_x = torch.tensor([False, True, True], device=cv.device)[None, :]
+    sec_use_x = corner > 0                                   # [F, T, T]
 
     out = {}
     for k, orig, crossing in (("cv", cv, xcv), ("rv", rv, xrv),

@@ -223,13 +223,14 @@ def bin_triangles(setup: Dict[str, torch.Tensor], *, width: int, height: int,
     return ids, counts
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _level_consts(device: torch.device, width: int, height: int, g: int,
                   y_offset: int):
     """Constants of ``segment_keys``' two levels (0: tiles, 1: super-tiles),
     made once per device and grid: each bbox row's divisor and last index
     (2, 4) for the rows (xmin, xmax, ymin, ymax); each level's key stride
-    and first key (2,); the band's row offset (4,)."""
+    and first key (2,); the band's row offset (4,). Never evicted: a CUDA
+    graph captured with them reads them by address at every replay."""
     ntx, nty = _cdiv(width, TILE_W), _cdiv(height, TILE_H)
     nsx, nsy = _cdiv(ntx, g), _cdiv(nty, g)
 
@@ -788,7 +789,8 @@ def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
     """Allocate the (..., H, W) outputs and launch ``wrapper``'s kernel on
     the tensors' card over the frames' tiles, in its tracking form when
     ``track_ids`` (a gid plane is passed) or not (a null pointer); raise if
-    the launch was refused, else count it."""
+    the launch was refused, else count it. Under CUDA graph capture the
+    launch goes into the graph and counts once; replays are not counted."""
     dev = textures.device
     outs = [torch.empty((*lead, height, width), dtype=dt, device=dev)
             for dt in (torch.int32, torch.float32, torch.int32)[:2 + track_ids]]
@@ -858,7 +860,10 @@ def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``raster_flat_nearest.launches`` counts the kernel's launches, and
-    ``.launches_ids`` those of its tracking form.
+    ``.launches_ids`` those of its tracking form: each call that launches,
+    eagerly or into a CUDA graph being captured (counted once, at capture;
+    the graph's replays launch without the wrapper, and
+    ``graphs.FrameGraphs.replays`` counts those).
     """
     return _raster_flat(raster_flat_nearest, "nearest", counts, ids, trf, tri,
                         textures, width=width, height=height,
@@ -874,7 +879,7 @@ def raster_flat_bilinear(counts: torch.Tensor, ids: torch.Tensor,
     """``raster_flat_nearest`` with the bilinear texel fetch: the four taps
     of ``ops.texture.bilinear_taps``, blended as float channels before the
     shade multiply. ``raster_flat_bilinear.launches`` and ``.launches_ids``
-    count its launches."""
+    count its launches, a captured one once, at capture."""
     return _raster_flat(raster_flat_bilinear, "bilinear", counts, ids, trf,
                         tri, textures, width=width, height=height,
                         background=background, y_offset=y_offset,
@@ -943,7 +948,8 @@ def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``raster_segmented_nearest.launches`` counts the kernel's launches, and
-    ``.launches_ids`` those of its tracking form.
+    ``.launches_ids`` those of its tracking form, a captured one once, at
+    capture (a graph's replays are not counted here).
     """
     return _raster_segmented(raster_segmented_nearest, "nearest", ids, starts,
                              counts, bb, bb_count, bb_box, trf, tri, rec,
@@ -963,7 +969,7 @@ def raster_segmented_bilinear(ids: torch.Tensor, starts: torch.Tensor,
     """``raster_segmented_nearest`` with the bilinear texel fetch, equal to
     ``raster_flat_bilinear`` on the same setup table.
     ``raster_segmented_bilinear.launches`` and ``.launches_ids`` count its
-    launches."""
+    launches, a captured one once, at capture."""
     return _raster_segmented(raster_segmented_bilinear, "bilinear", ids, starts,
                              counts, bb, bb_count, bb_box, trf, tri, rec,
                              textures, width=width, height=height,

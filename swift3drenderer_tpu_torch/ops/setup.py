@@ -33,8 +33,12 @@ def edge_function(ax, ay, bx, by, cx, cy):
     return (cx - ax) * (ay - by) + (cy - ay) * (bx - ax)
 
 
-def triangle_setup(corners: Dict[str, torch.Tensor], width: int, height: int,
+def triangle_setup(corners: Dict[str, torch.Tensor], width, height,
                    min_area: float) -> Setup:
+    # width/height are Python ints (the exact-size frame) or 0-dim float32
+    # tensors on the corners' device (the bucketed frame: the raster extent
+    # is the bucket's, the true size only bounds coverage); both are exact
+    # in float32, so the two give the same table bit for bit.
     rv = corners["rv"]                       # (S, 3, 3)
     cv = corners["cv"]
     attr = corners["attr"]
@@ -75,9 +79,9 @@ def triangle_setup(corners: Dict[str, torch.Tensor], width: int, height: int,
 
     # Integer bbox, truncation semantics matching Swift Int() (render.swift:282-285).
     xmin = trunc_i32(torch.clamp(rvmin[:, 0], min=0.0))
-    xmax = trunc_i32(torch.clamp(rvmax[:, 0], max=float(width - 1)))
+    xmax = trunc_i32(torch.clamp(rvmax[:, 0], max=width - 1))
     ymin = trunc_i32(torch.clamp(rvmin[:, 1], min=0.0))
-    ymax = trunc_i32(torch.clamp(rvmax[:, 1], max=float(height - 1)))
+    ymax = trunc_i32(torch.clamp(rvmax[:, 1], max=height - 1))
 
     # Perspective premultiply (render.swift:297-299).
     rvz = 1.0 / rv[:, :, 2]                  # (S, 3)

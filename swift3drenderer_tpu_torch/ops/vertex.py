@@ -37,10 +37,14 @@ def transform_points(vertices: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return _times_mt(vertices, m)
 
 
-def project(cv: torch.Tensor, factor: float, half_w: float,
-            half_h: float) -> torch.Tensor:
+def project(cv: torch.Tensor, factor, half_w, half_h) -> torch.Tensor:
     """Raster vertices (render.swift:251): screen xy from the pinhole
-    ``(x, -y) * factor / -z`` plus screen center; rv.z holds the view depth -z."""
+    ``(x, -y) * factor / -z`` plus screen center; rv.z holds the view depth -z.
+
+    The constants are Python floats (the exact-size frame) or 0-dim float32
+    tensors on ``cv``'s device (the bucketed frame). A float operand is
+    rounded to float32 once, so the host must round ``factor`` from its
+    float64 value for both to agree bit for bit (``renderer.frame_dims``)."""
     z = -cv[..., 2]
     sx = cv[..., 0] * factor / z + half_w
     sy = -cv[..., 1] * factor / z + half_h

@@ -13,7 +13,11 @@ PyTorch.
 The scene is uploaded once, corner-major; per frame only the matrix goes to the
 device. A single frame is the batch of one. Entry points run on the CUDA card
 unless the caller passes ``device="cpu"``, which takes the plain PyTorch
-version of every kernel.
+version of every kernel. On the card ``Renderer`` replays one CUDA graph per
+frame size and batch (``graphs.FrameGraphs``), the counterpart of the JAX
+frame's one compile per size; ``render(..., bucketed=True)`` replays one per
+resize bucket (``bucket_dims``) with the true size in device scalars
+(``render_frames_bucketed``), so a drag-resize captures log-many times.
 
 ``render_range`` renders one triangle range of a frame with its winners'
 global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
@@ -22,13 +26,14 @@ global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, RenderConfig
 from .convert import device_arrays_from_numpy, resolve_device
+from .graphs import FrameGraphs
 from .ops.clip import clip_prepass
 from .ops.raster import rasterize
 from .ops.setup import triangle_setup
@@ -113,8 +118,9 @@ def render_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, lo: int,
                      sampling=config.sampling, gids=gids)
 
 
-def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
-                height: int, config: RenderConfig) -> Dict[str, torch.Tensor]:
+def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width,
+                height, config: RenderConfig,
+                proj=None) -> Dict[str, torch.Tensor]:
     """Geometry front-end: transforms, clip prepass, setup table.
 
     ``m`` is one (3, 4) matrix, or a (B, 3, 4) batch; then every setup array
@@ -123,9 +129,17 @@ def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
     products differ per frame; the frames are flattened frame-major into the
     triangle axis for the clip prepass and the setup table, which work per
     triangle and per slot, so each frame keeps its own slots in their own
-    order (the order that decides depth ties)."""
-    factor = config.factor(height)
-    half_w, half_h = width / 2.0, height / 2.0
+    order (the order that decides depth ties).
+
+    ``width``/``height`` may be 0-dim float32 tensors on the device (the
+    bucketed frame); then pass the projection constants as ``proj =
+    (factor, half_w, half_h)``, 0-dim tensors from ``frame_dims``, so the
+    table equals the exact-size one bit for bit."""
+    if proj is None:
+        factor = config.factor(height)
+        half_w, half_h = width / 2.0, height / 2.0
+    else:
+        factor, half_w, half_h = proj
     t = dev["vert_c"].shape[0]
     lead = tuple(m.shape[:-2])
     nb = math.prod(lead)
@@ -163,6 +177,54 @@ def render_frames(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
                      sampling=config.sampling)
 
 
+def _bucket_dim(x: int, step: int, lo: int = 128, growth: float = 1.4) -> int:
+    b = lo
+    while b < x:
+        b = -(-int(b * growth) // step) * step
+    return b
+
+
+def bucket_dims(width: int, height: int) -> Tuple[int, int]:
+    """Geometric size buckets for live resize (the JAX package's
+    ``bucket_dims``): a frame renders at the raster extent of its bucket and
+    is cropped, so a drag-resize sweep captures at most log-many graphs."""
+    return _bucket_dim(width, 128), _bucket_dim(height, 64)
+
+
+def frame_dims(width: int, height: int,
+               config: RenderConfig = DEFAULT_CONFIG) -> np.ndarray:
+    """(5,) float32: width, height, factor, half_w, half_h — the true size
+    and projection constants of a bucketed frame, computed on the host in
+    float64 and rounded to float32 once, as the JAX ``Renderer`` builds its
+    ``dims`` and as a Python float operand is rounded in the exact-size
+    frame."""
+    return np.array([width, height, config.factor(height), width / 2.0,
+                     height / 2.0], np.float32)
+
+
+def render_frames_bucketed(dev: Dict[str, torch.Tensor], ms: torch.Tensor,
+                           dims: torch.Tensor, *, bw: int, bh: int,
+                           config: RenderConfig = DEFAULT_CONFIG
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batch of frames (ms (B, 3, 4)) of the true size in ``dims`` ((5,)
+    float32 on the device, ``frame_dims``) rendered at the raster extent of
+    its bucket (bw, bh) >= (W, H): (pixels (B, bh, bw) int32, depth (B, bh,
+    bw) f32); the caller crops to ``[:, :H, :W]``. Counterpart of
+    ``_render_frame_bucketed``'s Pallas branch.
+
+    The setup table is built with the true size, so every bbox ends inside
+    it and columns and rows past it stay background; the tile grid starts at
+    0, so each tile inside the true size is the exact frame's tile. The crop
+    equals ``render_frames`` at (W, H) bit for bit."""
+    if ms.dim() != 3 or tuple(ms.shape[1:]) != (3, 4):
+        raise ValueError(f"need a (B, 3, 4) batch of matrices, got {tuple(ms.shape)}")
+    setup = build_setup(dev, ms, width=dims[0], height=dims[1], config=config,
+                        proj=(dims[2], dims[3], dims[4]))
+    return rasterize(setup, dev["textures"], width=bw, height=bh,
+                     background=config.background_packed,
+                     sampling=config.sampling)
+
+
 def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
                  height: int, config: RenderConfig = DEFAULT_CONFIG
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,7 +239,14 @@ def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
 
 class Renderer:
     """Host-side frame orchestrator; the scene stays on ``device`` for the
-    renderer's lifetime."""
+    renderer's lifetime.
+
+    On the card every call replays a CUDA graph, captured at the first call
+    of its key: (W, H, B), or with ``bucketed=True`` the bucket (bw, bh, B)
+    — ``graphs`` holds them and counts captures and replays. What
+    ``render_device`` and ``render_batch`` return is the caller's: a copy
+    out of the graph's outputs, which the next call does not touch. On the
+    CPU every call runs eagerly."""
 
     def __init__(self, scene: Scene, config: RenderConfig = DEFAULT_CONFIG,
                  device="cuda") -> None:
@@ -185,28 +254,97 @@ class Renderer:
         self.config = config
         self.device = resolve_device(device)
         self.dev = scene_to_device(scene, self.device)
+        # Host copies of the fixed topology, for update_scene.
+        self._host_vi = scene.vertex_indices.reshape(-1, 3).astype(np.int64)
+        self._host_ai = scene.attribute_indices.reshape(-1, 3).astype(np.int64)
+        self._flat_shapes = {"vertices": scene.vertices.shape,
+                             "normals": scene.normals.shape,
+                             "attr_vec": scene.attr_vec.shape}
+        self.graphs = (FrameGraphs(self.device) if self.device.type == "cuda"
+                       else None)
 
-    def _matrices(self, matrices) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(matrices, np.float32),
-                               device=self.device)
+    def _frames(self, ms: np.ndarray, width: int, height: int,
+                bucketed: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pixels (B, H, W), depth) of the poses ``ms`` (B, 3, 4): on the
+        card, views of a graph's outputs, which its next replay overwrites."""
+        b = ms.shape[0]
+        inputs = ms.reshape(-1)
+        if bucketed:
+            bw, bh = bucket_dims(width, height)
+            key = ("bucket", bw, bh, b)
+            inputs = np.concatenate(
+                [inputs, frame_dims(width, height, self.config)])
+
+            def frame(x):
+                return render_frames_bucketed(
+                    self.dev, x[:12 * b].view(b, 3, 4), x[12 * b:], bw=bw,
+                    bh=bh, config=self.config)
+        else:
+            key = ("exact", width, height, b)
+
+            def frame(x):
+                return render_frames(self.dev, x.view(b, 3, 4), width=width,
+                                     height=height, config=self.config)
+        if self.graphs is None:
+            pix, depth = frame(torch.from_numpy(inputs))
+        else:
+            pix, depth = self.graphs.run(key, frame, inputs)
+        return pix[:, :height, :width], depth[:, :height, :width]
+
+    def _owned(self, *planes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return planes if self.graphs is None else tuple(
+            p.clone() for p in planes)
 
     def render_device(self, camera_matrix, width: int, height: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render, leaving (pixels (H, W) int32, depth (H, W) f32) on the
         device."""
-        return render_frame(self.dev, self._matrices(camera_matrix),
-                            width=width, height=height, config=self.config)
+        m = np.asarray(camera_matrix, np.float32)
+        if m.shape != (3, 4):
+            raise ValueError(f"need a (3, 4) matrix, got {m.shape}")
+        pix, depth = self._frames(m[None], width, height, False)
+        return self._owned(pix[0], depth[0])
 
-    def render(self, camera_matrix, width: int, height: int
-               ) -> Tuple[np.ndarray, np.ndarray]:
-        """Render one frame; returns host (pixels (H, W) uint32, depth f32)."""
-        pix, depth = self.render_device(camera_matrix, width, height)
-        return pix.cpu().numpy().view(np.uint32), depth.cpu().numpy()
+    def render(self, camera_matrix, width: int, height: int,
+               bucketed: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """Render one frame; returns host (pixels (H, W) uint32, depth f32).
+
+        ``bucketed=True`` renders at the size's ``bucket_dims`` bucket and
+        crops: one graph per bucket instead of per exact size (live resize),
+        the frame bit-equal to the exact-size one."""
+        m = np.asarray(camera_matrix, np.float32)
+        if m.shape != (3, 4):
+            raise ValueError(f"need a (3, 4) matrix, got {m.shape}")
+        pix, depth = self._frames(m[None], width, height, bucketed)
+        return pix[0].cpu().numpy().view(np.uint32), depth[0].cpu().numpy()
 
     def render_batch(self, matrices, width: int, height: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render a batch of camera poses ((B, 3, 4)) in one raster launch —
         the serving path (``Renderer.render_batch`` of the JAX package).
         Returns device tensors: pixels (B, H, W) int32, depth (B, H, W) f32."""
-        return render_frames(self.dev, self._matrices(matrices), width=width,
-                             height=height, config=self.config)
+        ms = np.asarray(matrices, np.float32)
+        if ms.ndim != 3 or ms.shape[1:] != (3, 4):
+            raise ValueError(f"need a (B, 3, 4) batch of matrices, got {ms.shape}")
+        return self._owned(*self._frames(ms, width, height, False))
+
+    def update_scene(self, vertices: Optional[np.ndarray] = None,
+                     normals: Optional[np.ndarray] = None,
+                     attr_vec: Optional[np.ndarray] = None) -> None:
+        """Animate the scene: swap per-vertex/attribute data (the JAX
+        ``Renderer.update_scene``). Shapes must match the bound scene; the
+        topology and the textures are fixed per Renderer. The corner-major
+        arrays are written in place, so every captured graph reads the new
+        scene at its next replay."""
+        for name, arr, cname, idx in (
+                ("vertices", vertices, "vert_c", self._host_vi),
+                ("normals", normals, "norm_c", self._host_ai),
+                ("attr_vec", attr_vec, "attr_c", self._host_ai)):
+            if arr is None:
+                continue
+            arr = np.asarray(arr, np.float32)
+            if arr.shape != self._flat_shapes[name]:
+                raise ValueError(
+                    f"{name} shape {arr.shape} != bound "
+                    f"{self._flat_shapes[name]}")
+            self.dev[cname].copy_(torch.from_numpy(arr[idx]))

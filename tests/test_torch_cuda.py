@@ -6,7 +6,9 @@ against full frames, the flat kernels' culled tiles, depth ties, slot limit
 and runs of tiles, the segmented kernels' super-tile lists, staged
 slot records and residual filter at several K and G, and the CUDA renderer (single frames and
 ``render_batch``) against the CPU one, on the default scene and on a stress
-field (3,078 slots, the segmented path); and the probes of
+field (3,078 slots, the segmented path); the captured frames (CUDA graphs)
+against the eager frames, bucketed against exact, after ``update_scene``,
+their ownership, counters and failed captures; and the probes of
 ``swift3drenderer_tpu_torch.tools`` against their plain versions.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
@@ -17,11 +19,17 @@ JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 import swift3drenderer_tpu_torch as port
+from swift3drenderer_tpu_torch import renderer as trenderer
 from swift3drenderer_tpu_torch.models import SCENES
 from swift3drenderer_tpu_torch.ops import raster as tr
 from swift3drenderer_tpu_torch.renderer import build_setup, scene_to_device
@@ -122,21 +130,29 @@ def test_segmented_kernel_matches_plain_on_cuda(size):
 @pytest.mark.cuda
 def test_cuda_renderer_equals_cpu_renderer_on_stress():
     """The segmented path: one raster_segmented_nearest launch per frame on
-    the card, and the same frames as the CPU renderer, bit for bit."""
+    the card, and the same frames as the CPU renderer, bit for bit. The
+    frame is captured once per size (its warm-up and its capture each pass
+    through the wrapper) and replayed for every call."""
     need_card()
     scene = SCENES["stress"](seed=0, objects=128)
     on_card = port.Renderer(scene, device="cuda")
     on_cpu = port.Renderer(scene, device="cpu")
+    calls = 0
     for m in flight(12)[::3]:
         for w, h in ((W, H), RAGGED):
             flat, seg = (tr.raster_flat_nearest.launches,
                          tr.raster_segmented_nearest.launches)
+            captures = on_card.graphs.captures
             pg, dg = on_card.render(m, w, h)
-            assert tr.raster_segmented_nearest.launches == seg + 1
+            calls += 1
+            new = on_card.graphs.captures - captures
+            assert tr.raster_segmented_nearest.launches == seg + 2 * new
             assert tr.raster_flat_nearest.launches == flat
             pc, dc = on_cpu.render(m, w, h)
             np.testing.assert_array_equal(pg, pc)
             np.testing.assert_array_equal(dg, dc)
+    assert on_card.graphs.captures == 2
+    assert on_card.graphs.replays == calls
 
 
 def tables_for(route, setup, gids=None):
@@ -427,6 +443,166 @@ def test_flat_kernel_edges_match_plain_on_cuda(sampling):
 
 
 PROBE_ITERS = (1, 3, 64, 130)   # and each tool's full ITERS
+
+
+def eager(r, ms, w, h):
+    """The renderer's frames of the poses ``ms`` launched eagerly."""
+    return trenderer.render_frames(
+        r.dev, torch.as_tensor(np.stack(ms), device="cuda"), width=w,
+        height=h, config=r.config)
+
+
+def assert_equal_on_card(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "stress"])
+def test_captured_frames_equal_eager_frames_on_cuda(name):
+    """render_device and render_batch replay a CUDA graph captured once per
+    (W, H, B): bit-equal to the eager frames, on the flat route (default)
+    and the segmented one (stress_scene(objects=128)), nearest and
+    bilinear."""
+    need_card()
+    kw = dict(objects=128) if name == "stress" else {}
+    poses = flight(6)
+    for config in (port.DEFAULT_CONFIG, port.RenderConfig(sampling="bilinear")):
+        r = port.Renderer(SCENES[name](seed=0, **kw), config, device="cuda")
+        for w, h in ((W, H), RAGGED):
+            for m in poses:
+                pix, depth = r.render_device(m, w, h)
+                want = eager(r, [m], w, h)
+                assert_equal_on_card((pix, depth), (want[0][0], want[1][0]))
+            assert_equal_on_card(r.render_batch(np.stack(poses[:3]), w, h),
+                                 eager(r, poses[:3], w, h))
+        assert r.graphs.captures == 4           # (W, H) x B = 1, 3
+        assert r.graphs.replays == 2 * (len(poses) + 1)
+
+
+@pytest.mark.cuda
+def test_bucketed_frames_equal_exact_frames_on_cuda():
+    """render(..., bucketed=True) replays one graph per bucket; the crop
+    equals the exact-size frame bit for bit, flat and segmented."""
+    need_card()
+    sizes = [(320, 240), (300, 200), (333, 217), (512, 384), (1366, 768)]
+    for name, kw in (("default", {}), ("stress", dict(objects=128))):
+        r = port.Renderer(SCENES[name](seed=0, **kw), device="cuda")
+        for m in flight(6)[::5]:
+            for w, h in sizes:
+                pix, depth = r.render(m, w, h, bucketed=True)
+                want = eager(r, [m], w, h)
+                np.testing.assert_array_equal(
+                    pix, want[0][0].cpu().numpy().view(np.uint32))
+                np.testing.assert_array_equal(depth, want[1][0].cpu().numpy())
+        buckets = {trenderer.bucket_dims(w, h) for w, h in sizes}
+        assert r.graphs.captures == len(buckets) == 3
+
+
+@pytest.mark.cuda
+def test_replay_follows_update_scene_on_cuda():
+    """update_scene writes into the scene's tensors in place: the graph
+    captured before it renders the moved scene, bit-equal to a fresh
+    renderer's eager frame on that scene."""
+    need_card()
+    scene = SCENES["tetrahedron"](seed=0)
+    r = port.Renderer(scene, device="cuda")
+    m = flight(1)[0]
+    before, _ = r.render_device(m, W, H)
+    moved = scene.vertices.copy()
+    moved[:, 0] += 2.0
+    r.update_scene(vertices=moved)
+    pix, depth = r.render_device(m, W, H)
+    assert r.graphs.captures == 1 and r.graphs.replays == 2
+    assert not torch.equal(pix, before)
+    fresh = port.Renderer(dataclasses.replace(scene, vertices=moved),
+                          device="cuda")
+    assert_equal_on_card((pix, depth),
+                         tuple(x[0] for x in eager(fresh, [m], W, H)))
+    with pytest.raises(ValueError, match="shape"):
+        r.update_scene(vertices=moved[:2])
+
+
+@pytest.mark.cuda
+def test_result_survives_the_next_call_on_cuda():
+    """What render_device and render_batch return is the caller's: the
+    next replay of the same graph does not overwrite it."""
+    need_card()
+    r = port.Renderer(SCENES["default"](seed=0), device="cuda")
+    poses = flight(8)
+    held = [r.render_device(m, W, H) for m in poses[:4]]
+    batches = [r.render_batch(np.stack(poses[i:i + 2]), W, H)
+               for i in (4, 6)]
+    for m, got in zip(poses[:4], held):
+        assert_equal_on_card(got, tuple(x[0] for x in eager(r, [m], W, H)))
+    for i, got in zip((4, 6), batches):
+        assert_equal_on_card(got, eager(r, poses[i:i + 2], W, H))
+    assert not torch.equal(held[0][0], held[3][0])
+    assert r.graphs.captures == 2 and r.graphs.replays == 6
+
+
+@pytest.mark.cuda
+def test_capture_counters_over_a_resize_sweep_on_cuda():
+    """tests/test_resize.py's 50-step drag-resize, 300x200 -> 790x445:
+    bucketed, at most 4 captures and one replay a step; at exact sizes one
+    capture a size, and a size seen again replays."""
+    need_card()
+    r = port.Renderer(SCENES["tetrahedron"](seed=0), device="cuda")
+    m = flight(1)[0]
+    for i in range(50):
+        w, h = 300 + 10 * i, 200 + 5 * i
+        pix, _ = r.render(m, w, h, bucketed=True)
+        assert pix.shape == (h, w)
+    assert 1 <= r.graphs.captures <= 4 and r.graphs.replays == 50
+    assert all(k[0] == "bucket" for k in r.graphs.captured)
+    exact = port.Renderer(SCENES["tetrahedron"](seed=0), device="cuda")
+    for w, h in ((300, 200), (310, 205), (300, 200)):
+        exact.render(m, w, h)
+    assert exact.graphs.captures == 2 and exact.graphs.replays == 3
+    for stats in exact.graphs.captured.values():
+        assert stats["capture_ms"] > 0 and stats["reserved_bytes"] >= 0
+
+
+# Renders a frame whose capture is made to fail: a scalar read (a copy to
+# the host and a synchronisation, which a capture forbids) is slipped into
+# the frame's rasterizer while a capture is under way. A failed capture can
+# leave the CUDA context unusable, hence a process of its own.
+_FAILED_CAPTURE_RUN = """
+import torch
+import swift3drenderer_tpu_torch as port
+from swift3drenderer_tpu_torch import renderer
+from swift3drenderer_tpu_torch.models import SCENES
+rasterize = renderer.rasterize
+
+def reads_a_scalar(setup, *args, **kw):
+    if torch.cuda.is_current_stream_capturing():
+        int(setup["live"].sum())
+    return rasterize(setup, *args, **kw)
+
+renderer.rasterize = reads_a_scalar
+r = port.Renderer(SCENES["tetrahedron"](seed=0), device="cuda")
+try:
+    r.render_device(port.Camera().matrix, 64, 48)
+except RuntimeError as e:
+    print("raised", r.graphs.captures, r.graphs.replays, len(r.graphs.captured),
+          flush=True)
+else:
+    print("rendered", flush=True)
+"""
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_on_cuda():
+    """A capture that fails raises out of render_device; nothing is kept
+    or replayed, and no eager frame is returned in its place."""
+    need_card()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE_RUN],
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert run.stdout.split()[-4:] == ["raised", "0", "0", "0"], (
+        run.stdout[-2000:] + run.stderr[-3000:])
 
 
 @pytest.mark.cuda

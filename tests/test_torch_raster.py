@@ -267,6 +267,64 @@ def test_texel_boundary_pose_within_golden_bound(both_rasters, tmp_path):
     np.testing.assert_array_equal(win, np.where(dn > 0, gn, -1))
 
 
+# The JAX package's whole Pallas frame (its front-end, then the Pallas
+# kernel in interpret mode at 8-row tiles) under the identity camera at each
+# size given, saved for the test below; run with XLA limited to AVX.
+_NO_FMA_IDENTITY_RUN = """
+import sys
+import jax
+import jax.numpy as jnp
+import numpy as np
+jax.config.update("jax_platforms", "cpu")
+from swift3drenderer_tpu.camera import Camera, Input
+from swift3drenderer_tpu.models import SCENES
+from swift3drenderer_tpu.ops.raster_pallas import render_frame_pallas
+from swift3drenderer_tpu.renderer import scene_to_device
+dev = scene_to_device(SCENES["default"](seed=0))
+m = jnp.asarray(Camera().update(Input(), force_update=True))
+out = {}
+for size in sys.argv[2:]:
+    w, h = map(int, size.split("x"))
+    pix, depth = render_frame_pallas(dev, m, width=w, height=h,
+                                     interpret=True, tile_h=8)
+    out[f"pix{size}"], out[f"depth{size}"] = np.asarray(pix), np.asarray(depth)
+np.savez(sys.argv[1], **out)
+"""
+
+
+def test_identity_pose_equals_pallas_without_fma(tmp_path):
+    """The identity camera on the default scene at 37x19, 96x64 and 128x96:
+    frames whose floor pixels sit on texel boundaries, where XLA's CPU
+    multiply-add contraction flips Pallas texels (1.7e-3 to 2.4e-2 at tol 1
+    against the port in a process with FMA3). Without contraction (a
+    subprocess with XLA limited to AVX) the JAX package's whole Pallas frame
+    equals the port's (``Renderer(device="cpu")``) bit for bit, pixels and
+    depth."""
+    import swift3drenderer_tpu_torch as port
+    from swift3drenderer_tpu_torch.models import SCENES as PORT_SCENES
+
+    sizes = ["37x19", "96x64", "128x96"]
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT, os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-c", _NO_FMA_IDENTITY_RUN,
+         str(tmp_path / "identity.npz"), *sizes],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    ref = np.load(tmp_path / "identity.npz")
+    ours = port.Renderer(PORT_SCENES["default"](seed=0), device="cpu")
+    m = port.Camera().update(port.Input(), force_update=True)
+    for size in sizes:
+        w, h = map(int, size.split("x"))
+        pix, depth = ours.render(m, w, h)
+        np.testing.assert_array_equal(pix, ref[f"pix{size}"], err_msg=size)
+        np.testing.assert_array_equal(depth, ref[f"depth{size}"],
+                                      err_msg=size)
+        assert (depth > 0).mean() > 0.2, size
+
+
 @pytest.mark.parametrize("y0", [0, 61])
 def test_tile_cull_drops_only_slots_that_cover_no_pixel(default_frames, y0):
     """The flat kernels' per-tile cull (csrc/raster.cu::tile_may_cover, as
