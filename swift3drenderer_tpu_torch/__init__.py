@@ -2,11 +2,13 @@
 PyTorch, with its TPU kernel rewritten by hand in CUDA C++ for Hopper.
 
 The package imports torch and numpy only: the numpy modules it shares with the
-JAX package (config, camera, scene container and factories, textures) are kept
-here as copies. Entry points default to ``device="cuda"``; pass
-``device="cpu"`` to run the plain PyTorch version of every kernel.
-``ShardedRenderer`` and the rest of ``parallel`` render over
-torch.distributed ranks.
+JAX package (config, camera, scene container and factories, textures, the
+golden oracle, the app's input, telemetry and data tools) are kept here as
+copies. Entry points default to ``device="cuda"``; pass ``device="cpu"`` to
+run the plain PyTorch version of every kernel. ``Renderer(backend="xla")``
+rasterizes with ``ops.raster_xla`` instead of the kernels. ``app`` and
+``viewer`` are the application shell; ``ShardedRenderer`` and the rest of
+``parallel`` render over torch.distributed ranks.
 """
 
 from .camera import Camera, GamepadState, Input, KeyboardState

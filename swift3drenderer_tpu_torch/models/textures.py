@@ -1,8 +1,9 @@
-"""Procedural texture sources.
+"""Texture sources.
 
-Copy of the procedural half of ``swift3drenderer_tpu.models.textures``:
-deterministic base images turned into ripmap atlases by
-:mod:`swift3drenderer_tpu_torch.utils.ripmap`.
+Copy of ``swift3drenderer_tpu.models.textures``: deterministic procedural
+base images, and photographs bundled with installed packages (PIL,
+scikit-learn and matplotlib, imported only when a photo is asked for),
+turned into ripmap atlases by :mod:`swift3drenderer_tpu_torch.utils.ripmap`.
 """
 
 from __future__ import annotations
@@ -47,3 +48,67 @@ def default_texture_words(num: int = 2) -> np.ndarray:
         base = makers[i % len(makers)](seed=i)
         out.append(pack_rgb_words(build_ripmap_atlas(base)))
     return np.stack(out).astype(np.uint32)
+
+
+def _photo_sources():
+    """Paths of real photographs bundled with installed packages.
+
+    The reference ships two painting scans as its texture artwork
+    (data-generator/ppms/, README.md:21); we don't copy those assets, so the
+    non-procedural default uses freely redistributable sample photographs that
+    ship with scikit-learn (china.jpg, flower.jpg — CC-licensed example data)
+    and matplotlib (grace_hopper.jpg).
+    """
+    import os
+    paths = []
+    try:
+        import sklearn.datasets as skd
+        img_dir = os.path.join(os.path.dirname(skd.__file__), "images")
+        for name in ("china.jpg", "flower.jpg"):
+            p = os.path.join(img_dir, name)
+            if os.path.exists(p):
+                paths.append(p)
+    except ImportError:
+        pass
+    try:
+        import matplotlib
+        p = os.path.join(matplotlib.get_data_path(), "sample_data",
+                         "grace_hopper.jpg")
+        if os.path.exists(p):
+            paths.append(p)
+    except ImportError:
+        pass
+    return paths
+
+
+def photo_base(index: int = 0, edge: int = BASE_LEVEL) -> np.ndarray:
+    """A real photograph, center-cropped square and resampled to the ripmap
+    base level — the non-procedural analog of the reference's painting scans.
+
+    Raises RuntimeError when no bundled sample photo is available (no network
+    access is assumed; callers fall back to the procedural textures).
+    """
+    from PIL import Image
+
+    paths = _photo_sources()
+    if not paths:
+        raise RuntimeError(
+            "no bundled sample photographs found (need scikit-learn or "
+            "matplotlib); use the procedural textures instead")
+    img = Image.open(paths[index % len(paths)]).convert("RGB")
+    w, h = img.size
+    side = min(w, h)
+    img = img.crop(((w - side) // 2, (h - side) // 2,
+                    (w - side) // 2 + side, (h - side) // 2 + side))
+    # Resample to 2x the base level, then let the atlas builder's box filter
+    # produce the 256x256 base — a cheap approximation of proper prefiltering.
+    img = img.resize((2 * edge, 2 * edge), Image.LANCZOS)
+    return np.asarray(img, dtype=np.uint8)
+
+
+def photo_texture_words(num: int = 2) -> np.ndarray:
+    """(num, 512, 512) u32 ripmap atlases built from real photographs."""
+    return np.stack([
+        pack_rgb_words(build_ripmap_atlas(photo_base(i)))
+        for i in range(num)
+    ]).astype(np.uint32)

@@ -12,6 +12,11 @@ device.
   min global id), a total order per pixel, so the composite is the
   single-device frame bit for bit whatever the split.
 
+Both take ``backend=`` as ``Renderer`` does: ``"cuda"`` (the hand-written
+kernels, the port's default) or ``"xla"`` (``ops.raster_xla``). The JAX
+functions default to ``"xla"`` (``render_batch_sharded``) and ``"pallas"``
+(``render_scene_sharded``); the port's defaults stay ``"cuda"``.
+
 Geometry is recomputed on every rank rather than sent: it is small beside the
 pixels. The composite is a butterfly (recursive doubling) of
 ``batch_isend_irecv`` exchanges when every axis is a power of two, each rank
@@ -35,8 +40,10 @@ import torch.distributed as dist
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..convert import resolve_device
-from ..ops.raster import NO_GID, rasterize
-from ..renderer import build_setup, render_range, scene_to_device
+from ..ops import raster_xla
+from ..ops.raster import NO_GID
+from ..renderer import (build_setup, check_backend, rasterize_backend,
+                        render_range, scene_to_device)
 
 
 @dataclass(frozen=True)
@@ -181,21 +188,52 @@ def _gather_merge(mesh: Mesh, packed: torch.Tensor,
     return _pack(*acc)
 
 
+def _xla_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
+               height: int, config: RenderConfig, mesh: Mesh):
+    """This rank's part of the ``"xla"`` scene composite (sharding.py:202-220
+    of the JAX package): the full setup table, padded with dead slots to 2 *
+    ceil(T / n) * n, cut into n equal slot ranges; rank r rasterizes range r
+    over the whole frame, and every covered pixel takes the range's first
+    slot as its gid. Within a range the earlier slot keeps a tie, and across
+    ranges the merge's min gid keeps the lower range, so the composite is
+    the single ``"xla"`` frame."""
+    t = dev["vert_c"].shape[0]
+    local = 2 * math.ceil(t / mesh.size)
+    setup = build_setup(dev, m, width=width, height=height, config=config)
+    pad = local * mesh.size - 2 * t
+    lo = mesh.rank * local
+    sub = {k: torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+           [lo:lo + local] for k, v in setup.items()}
+    pix, ooz = raster_xla.rasterize(
+        sub, dev["textures"], width=width, height=height,
+        background=config.background_packed, sampling=config.sampling)
+    return pix, ooz, torch.where(ooz > 0, lo, NO_GID).to(torch.int32)
+
+
 def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
                          width: int, height: int,
-                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh
+                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh,
+                         backend: str = "cuda"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Triangle-sharded rendering, the scene-parallel axis: rank r renders
     triangles [r * L, (r + 1) * L) over the whole frame, L = ceil(T / n)
     (the last ranges padded with dead triangles), with its winners' global
     ids, and the n frames are composited by (max 1/z, then min global id).
     Every rank of the mesh returns the composite (pixels (H, W) int32, depth
-    (H, W) f32), equal bit for bit to ``render_frame`` on one device."""
+    (H, W) f32), equal bit for bit to ``render_frame`` on one device.
+
+    ``backend="xla"`` cuts the full setup table into slot ranges instead
+    (``_xla_range``) and gives the single ``render_frame_xla`` frame."""
     _member(mesh)
-    local_t = math.ceil(dev["vert_c"].shape[0] / mesh.size)
-    pix, ooz, gid = render_range(dev, m, lo=mesh.rank * local_t,
-                                 count=local_t, width=width, height=height,
-                                 config=config)
+    check_backend(backend)
+    if backend == "xla":
+        pix, ooz, gid = _xla_range(dev, m, width=width, height=height,
+                                   config=config, mesh=mesh)
+    else:
+        local_t = math.ceil(dev["vert_c"].shape[0] / mesh.size)
+        pix, ooz, gid = render_range(dev, m, lo=mesh.rank * local_t,
+                                     count=local_t, width=width,
+                                     height=height, config=config)
     packed = _pack(pix, ooz, gid)
     if all(s & (s - 1) == 0 for s in (mesh.n_frame, mesh.n_fb)):
         packed = _butterfly_merge(mesh, packed)
@@ -207,12 +245,14 @@ def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
 
 def render_batch_sharded(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
                          width: int, height: int,
-                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh
+                         config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh,
+                         backend: str = "cuda"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's block of a camera batch ms (B, 3, 4) rendered over the
     mesh: frames [f * B/n_frame, (f + 1) * B/n_frame) and rows [b * H/n_fb,
     (b + 1) * H/n_fb) for the rank at (f, b), as (pixels (B/n_frame,
-    H/n_fb, W) int32, depth f32). ``gather_batch`` assembles the batch."""
+    H/n_fb, W) int32, depth f32). ``gather_batch`` assembles the batch.
+    ``backend="xla"`` rasterizes each frame's band with ``ops.raster_xla``."""
     _member(mesh)
     if height % mesh.n_fb:
         raise ValueError(f"height {height} not divisible by fb axis {mesh.n_fb}")
@@ -223,9 +263,9 @@ def render_batch_sharded(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
     local_b, local_h = ms.shape[0] // mesh.n_frame, height // mesh.n_fb
     setup = build_setup(dev, ms[f * local_b:(f + 1) * local_b], width=width,
                         height=height, config=config)
-    return rasterize(setup, dev["textures"], width=width, height=local_h,
-                     background=config.background_packed,
-                     sampling=config.sampling, y_offset=b * local_h)
+    return rasterize_backend(setup, dev["textures"], width=width,
+                             height=local_h, config=config, backend=backend,
+                             y_offset=b * local_h)
 
 
 def gather_batch(mesh: Mesh, pix: torch.Tensor, depth: torch.Tensor

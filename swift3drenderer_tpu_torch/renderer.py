@@ -19,6 +19,13 @@ frame's one compile per size; ``render(..., bucketed=True)`` replays one per
 resize bucket (``bucket_dims``) with the true size in device scalars
 (``render_frames_bucketed``), so a drag-resize captures log-many times.
 
+Two backends share the front-end (``BACKENDS``): ``"cuda"``, the
+hand-written raster kernels (their plain versions on the CPU), and
+``"xla"``, ``ops.raster_xla``, the JAX package's portable banded rasterizer
+in torch ops (``render_frame_xla``), on the same device. The JAX
+``Renderer`` defaults to its ``"xla"`` backend; the port's defaults to
+``"cuda"``.
+
 ``render_range`` renders one triangle range of a frame with its winners'
 global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
 """
@@ -35,10 +42,41 @@ from .config import DEFAULT_CONFIG, RenderConfig
 from .convert import device_arrays_from_numpy, resolve_device
 from .graphs import FrameGraphs
 from .ops.clip import clip_prepass
+from .ops import raster_xla
 from .ops.raster import rasterize
 from .ops.setup import triangle_setup
 from .ops.vertex import project, transform_normals, transform_points
 from .utils.databin import Scene
+
+BACKENDS = ("cuda", "xla")
+
+
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}: the port renders with "
+                         f"{' or '.join(BACKENDS)}")
+
+
+def rasterize_backend(setup: Dict[str, torch.Tensor], textures: torch.Tensor,
+                      *, width: int, height: int, config: RenderConfig,
+                      backend: str, y_offset: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batch's setup tables (leading B) through the backend's rasterizer,
+    rows [y_offset, y_offset + height): one launch for ``"cuda"``,
+    ``raster_xla.rasterize`` frame by frame for ``"xla"`` (the JAX package
+    vmaps it)."""
+    if backend == "cuda":
+        return rasterize(setup, textures, width=width, height=height,
+                         background=config.background_packed,
+                         sampling=config.sampling, y_offset=y_offset)
+    check_backend(backend)
+    frames = [raster_xla.rasterize(
+        {k: v[b] for k, v in setup.items()}, textures, width=width,
+        height=height, background=config.background_packed,
+        y_offset=y_offset, sampling=config.sampling)
+        for b in range(setup["live"].shape[0])]
+    return tuple(torch.stack(p) for p in zip(*frames))
+
 
 def scene_to_device(scene: Scene, device) -> Dict[str, torch.Tensor]:
     """Upload a host Scene in structure-of-arrays form, with the corner
@@ -163,18 +201,34 @@ def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width,
 
 
 def render_frames(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
-                  width: int, height: int, config: RenderConfig = DEFAULT_CONFIG
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  width: int, height: int, config: RenderConfig = DEFAULT_CONFIG,
+                  backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """A batch of frames (ms (B, 3, 4)) through one front-end and one raster
     launch: (pixels (B, H, W) int32 holding 0x00RRGGBB, depth (B, H, W) f32),
     any scene size, with no device-to-host copy. Counterpart of
-    ``render_batch_pallas``; frame b equals ``render_frame`` of ``ms[b]``."""
+    ``render_batch_pallas``; frame b equals ``render_frame`` of ``ms[b]``.
+    ``backend="xla"`` rasterizes each frame with ``ops.raster_xla``."""
     if ms.dim() != 3 or tuple(ms.shape[1:]) != (3, 4):
         raise ValueError(f"need a (B, 3, 4) batch of matrices, got {tuple(ms.shape)}")
+    check_backend(backend)
     setup = build_setup(dev, ms, width=width, height=height, config=config)
-    return rasterize(setup, dev["textures"], width=width, height=height,
-                     background=config.background_packed,
-                     sampling=config.sampling)
+    return rasterize_backend(setup, dev["textures"], width=width,
+                             height=height, config=config, backend=backend)
+
+
+def render_frame_xla(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
+                     width: int, height: int,
+                     config: RenderConfig = DEFAULT_CONFIG,
+                     band_rows: int = 32, chunk: int = 16
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame (m (3, 4)) through the front-end and ``ops.raster_xla``:
+    (pixels (H, W) int32, depth (H, W) f32). Counterpart of the JAX
+    ``render_frame_xla``; ``band_rows`` and ``chunk`` change no bit."""
+    setup = build_setup(dev, m, width=width, height=height, config=config)
+    return raster_xla.rasterize(
+        setup, dev["textures"], width=width, height=height,
+        background=config.background_packed, band_rows=band_rows,
+        chunk=chunk, sampling=config.sampling)
 
 
 def _bucket_dim(x: int, step: int, lo: int = 128, growth: float = 1.4) -> int:
@@ -204,25 +258,27 @@ def frame_dims(width: int, height: int,
 
 def render_frames_bucketed(dev: Dict[str, torch.Tensor], ms: torch.Tensor,
                            dims: torch.Tensor, *, bw: int, bh: int,
-                           config: RenderConfig = DEFAULT_CONFIG
+                           config: RenderConfig = DEFAULT_CONFIG,
+                           backend: str = "cuda"
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A batch of frames (ms (B, 3, 4)) of the true size in ``dims`` ((5,)
     float32 on the device, ``frame_dims``) rendered at the raster extent of
     its bucket (bw, bh) >= (W, H): (pixels (B, bh, bw) int32, depth (B, bh,
     bw) f32); the caller crops to ``[:, :H, :W]``. Counterpart of
-    ``_render_frame_bucketed``'s Pallas branch.
+    ``_render_frame_bucketed`` (its Pallas branch, or with ``backend="xla"``
+    its XLA branch).
 
     The setup table is built with the true size, so every bbox ends inside
-    it and columns and rows past it stay background; the tile grid starts at
-    0, so each tile inside the true size is the exact frame's tile. The crop
-    equals ``render_frames`` at (W, H) bit for bit."""
+    it and columns and rows past it stay background; the tile grid and the
+    bands start at 0, so each pixel inside the true size is the exact
+    frame's. The crop equals ``render_frames`` at (W, H) bit for bit."""
     if ms.dim() != 3 or tuple(ms.shape[1:]) != (3, 4):
         raise ValueError(f"need a (B, 3, 4) batch of matrices, got {tuple(ms.shape)}")
+    check_backend(backend)
     setup = build_setup(dev, ms, width=dims[0], height=dims[1], config=config,
                         proj=(dims[2], dims[3], dims[4]))
-    return rasterize(setup, dev["textures"], width=bw, height=bh,
-                     background=config.background_packed,
-                     sampling=config.sampling)
+    return rasterize_backend(setup, dev["textures"], width=bw, height=bh,
+                             config=config, backend=backend)
 
 
 def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
@@ -239,7 +295,9 @@ def render_frame(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
 
 class Renderer:
     """Host-side frame orchestrator; the scene stays on ``device`` for the
-    renderer's lifetime.
+    renderer's lifetime. ``backend`` picks the rasterizer on that device:
+    ``"cuda"`` (the hand-written kernels; the default) or ``"xla"``
+    (``ops.raster_xla``); the JAX ``Renderer``'s default is ``"xla"``.
 
     On the card every call replays a CUDA graph, captured at the first call
     of its key: (W, H, B), or with ``bucketed=True`` the bucket (bw, bh, B)
@@ -249,9 +307,11 @@ class Renderer:
     CPU every call runs eagerly."""
 
     def __init__(self, scene: Scene, config: RenderConfig = DEFAULT_CONFIG,
-                 device="cuda") -> None:
+                 device="cuda", backend: str = "cuda") -> None:
         scene.validate()
+        check_backend(backend)
         self.config = config
+        self.backend = backend
         self.device = resolve_device(device)
         self.dev = scene_to_device(scene, self.device)
         # Host copies of the fixed topology, for update_scene.
@@ -278,13 +338,14 @@ class Renderer:
             def frame(x):
                 return render_frames_bucketed(
                     self.dev, x[:12 * b].view(b, 3, 4), x[12 * b:], bw=bw,
-                    bh=bh, config=self.config)
+                    bh=bh, config=self.config, backend=self.backend)
         else:
             key = ("exact", width, height, b)
 
             def frame(x):
                 return render_frames(self.dev, x.view(b, 3, 4), width=width,
-                                     height=height, config=self.config)
+                                     height=height, config=self.config,
+                                     backend=self.backend)
         if self.graphs is None:
             pix, depth = frame(torch.from_numpy(inputs))
         else:

@@ -8,8 +8,9 @@ slot records and residual filter at several K and G, and the CUDA renderer (sing
 ``render_batch``) against the CPU one, on the default scene and on a stress
 field (3,078 slots, the segmented path); the captured frames (CUDA graphs)
 against the eager frames, bucketed against exact, after ``update_scene``,
-their ownership, counters and failed captures; and the probes of
-``swift3drenderer_tpu_torch.tools`` against their plain versions.
+their ownership, counters and failed captures; the probes of
+``swift3drenderer_tpu_torch.tools`` against their plain versions; and the
+app's flight and the ``"xla"`` backend on the card against the CPU.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -649,3 +650,55 @@ def test_dynamic_grid_reads_its_count_on_cuda():
         want = pdg.expected(tab.cpu().numpy(), hbm.cpu().numpy(),
                             min(max(nc, 0), pdg.NCMAX))
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_app_flight_on_cuda_equals_cpu():
+    """run_headless on the card: every frame of a scripted flight (exact
+    and bucketed) equals the CPU loop's frame, the first capture replayed
+    for every later frame, on the cuda backend."""
+    from swift3drenderer_tpu_torch.app import FrameLoop, scripted_inputs
+
+    need_card()
+    scene = SCENES["default"](seed=0)
+    for bucketed in (False, True):
+        card = FrameLoop(scene, W, H, device="cuda", bucketed=bucketed)
+        cpu = FrameLoop(scene, W, H, device="cpu", bucketed=bucketed)
+        for inp in scripted_inputs("6:w;6:w mx2", 12):
+            np.testing.assert_array_equal(card.step(inp), cpu.step(inp))
+        assert card.renderer.graphs.captures == 1
+        assert card.renderer.graphs.replays == 12
+        assert card.renderer.backend == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling", ["nearest", "bilinear"])
+def test_xla_backend_on_cuda_equals_cpu(sampling):
+    """Renderer(backend="xla") on the card against the CPU, bit for bit:
+    single frames (captured), a batch, a bucketed frame; and within the
+    port's bound of the "cuda" backend."""
+    need_card()
+    cfg = port.RenderConfig(sampling=sampling)
+    scene = SCENES["default"](seed=0)
+    card = port.Renderer(scene, cfg, device="cuda", backend="xla")
+    cpu = port.Renderer(scene, cfg, device="cpu", backend="xla")
+    kernels = port.Renderer(scene, cfg, device="cuda")
+    poses = flight(3)
+    for m in poses:
+        pg, dg = card.render(m, W, H)
+        pc, dc = cpu.render(m, W, H)
+        np.testing.assert_array_equal(pg, pc)
+        np.testing.assert_array_equal(dg, dc)
+        pk, dk = kernels.render(m, W, H)
+        diff = np.abs(np.stack([(pk.astype(np.int64) >> s) & 255
+                                for s in (16, 8, 0)])
+                      - np.stack([(pg.astype(np.int64) >> s) & 255
+                                  for s in (16, 8, 0)])).max(0)
+        assert (diff > 1).mean() < 5e-4
+        np.testing.assert_array_equal(dk > 0, dg > 0)
+    bg, bd = card.render_batch(np.stack(poses), *RAGGED)
+    bc, bdc = cpu.render_batch(np.stack(poses), *RAGGED)
+    assert torch.equal(bg.cpu(), bc) and torch.equal(bd.cpu(), bdc)
+    pb, db = card.render(poses[1], *RAGGED, bucketed=True)
+    np.testing.assert_array_equal(pb, bc[1].numpy().view(np.uint32))
+    np.testing.assert_array_equal(db, bdc[1].numpy())

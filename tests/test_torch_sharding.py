@@ -37,6 +37,7 @@ torch.set_num_threads(1)
 
 WORLD = 8
 SCENE_MESHES = ((1, 2), (1, 4), (1, 6), (1, 8), (2, 4))   # (n_frame, n_fb)
+XLA_MESHES = ((1, 6), (2, 4))  # the backend="xla" composite: gather, butterfly
 W, H = 128, 64
 STRESS_OBJECTS = 64        # 771 triangles: every rank's range of at most 8
                            # takes the segmented route (> 125 slots)
@@ -101,11 +102,20 @@ def _rank_main(rank, store_path, out_dir):
                                                   mesh=mesh)
                 out[f"{name}_{nf}x{nb}_pix"] = pix.numpy()
                 out[f"{name}_{nf}x{nb}_depth"] = depth.numpy()
+            if (nf, nb) in XLA_MESHES:
+                pix, depth = render_scene_sharded(
+                    devs["default"], m, width=W, height=H, mesh=mesh,
+                    backend="xla")
+                out[f"xla_{nf}x{nb}_pix"] = pix.numpy()
+                out[f"xla_{nf}x{nb}_depth"] = depth.numpy()
         sr = ShardedRenderer(SCENES["default"](seed=0), mesh=grid, device="cpu")
         ms = batch_poses()
         pix, depth = render_batch_sharded(sr.dev, torch.from_numpy(ms), width=W,
                                           height=H, mesh=grid)
         out["block_pix"], out["block_depth"] = pix.numpy(), depth.numpy()
+        pix, depth = render_batch_sharded(sr.dev, torch.from_numpy(ms), width=W,
+                                          height=H, mesh=grid, backend="xla")
+        out["xla_block_pix"], out["xla_block_depth"] = pix.numpy(), depth.numpy()
         pix, depth = sr.render_batch(ms, W, H)
         out["batch_pix"], out["batch_depth"] = pix.numpy(), depth.numpy()
     finally:
@@ -153,6 +163,38 @@ def test_scene_sharded_equals_single_device(ranks, single, name, shape):
             continue
         np.testing.assert_array_equal(ranks[r][f"{key}_pix"], pix)
         np.testing.assert_array_equal(ranks[r][f"{key}_depth"], depth)
+
+
+def test_xla_backend_sharded_equals_single_xla_frames(ranks):
+    """The backend="xla" branches. render_scene_sharded: each rank
+    rasterizes a slot range of the full setup table with ops.raster_xla,
+    and the composite (all_gather merge on 6 ranks, butterfly on the 2 x 4
+    grid) equals the single render_frame_xla frame on every rank of the
+    mesh, bit for bit. render_batch_sharded on the 2 x 4 grid: rank (f, b)
+    holds its block of Renderer(backend="xla").render_batch's batch."""
+    from swift3drenderer_tpu_torch.renderer import render_frame_xla
+
+    pix, depth = (t.numpy() for t in render_frame_xla(
+        scene_arrays("default"), torch.from_numpy(scene_pose()), width=W,
+        height=H))
+    assert (depth > 0).mean() > 0.3
+    for nf, nb in XLA_MESHES:
+        for r in range(nf * nb):
+            np.testing.assert_array_equal(ranks[r][f"xla_{nf}x{nb}_pix"], pix)
+            np.testing.assert_array_equal(ranks[r][f"xla_{nf}x{nb}_depth"],
+                                          depth)
+    pix, depth = (t.numpy() for t in port.Renderer(
+        SCENES["default"](seed=0), device="cpu", backend="xla")
+        .render_batch(batch_poses(), W, H))
+    lb, lh = BATCH // 2, H // 4
+    for r in range(WORLD):
+        f, b = divmod(r, 4)
+        np.testing.assert_array_equal(
+            ranks[r]["xla_block_pix"],
+            pix[f * lb:(f + 1) * lb, b * lh:(b + 1) * lh])
+        np.testing.assert_array_equal(
+            ranks[r]["xla_block_depth"],
+            depth[f * lb:(f + 1) * lb, b * lh:(b + 1) * lh])
 
 
 def test_scene_sharded_matches_jax_render_scene_sharded(ranks):
