@@ -43,12 +43,16 @@ Phases; any failed check raises and the script exits non-zero:
      of them ragged), single frames and batches, nearest and bilinear; then
      the multi-device paths: render_scene_sharded on an NCCL group of one
      rank and ShardedRenderer.render_batch on a 1 x 1 mesh (one card holds
-     one NCCL rank), and the N-rank composites run as N per-range
+     one NCCL rank; the group lives to the end of the run), its rank's
+     block captured at the first call and replayed at the next two, each
+     call bit-equal to the eager block and to render_batch, and the N-rank
+     composites run as N per-range
      pipelines (renderer.render_range, each the device work of one rank)
      merged with merge_depth_gid, N = 2, 4, 8, on the default scene, stress
      840 and stress100k at 1920x1080 and, bilinear, the icosahedron and
      stress 840, and render_batch_sharded's 2 x 4 grid as its eight rank
-     blocks: each bit-equal to the single-card render;
+     blocks, eager and then through ShardedRenderer's graph of each rank
+     (captured, replayed): each bit-equal to the single-card render;
   5. time, with CUDA events after a warm-up: each cell's eager frame (or
      batch call: render_frames launched op by op), the front-end stages, its kernel (with the L2 cache cold, as a
      frame finds it) and plain version, beside the least time the card could
@@ -101,6 +105,8 @@ Phases; any failed check raises and the script exits non-zero:
      ms (median, min, max), host µs per replay call, ms per frame back to
      back; the copy out of the graph's outputs; capture ms and memory
      reserved per key; the default scene captured through either route;
+     ShardedRenderer.render_batch (default, B = 4, 1920x1080, NCCL world
+     of one) eager against replayed, in the same turns;
      and from torch.profiler each captured flight's busy share, kernels
      per replayed frame and device-to-host copies and scalar reads (must
      be none);
@@ -119,7 +125,14 @@ Phases; any failed check raises and the script exits non-zero:
      and 1024-slot chunks) bit-equal to the CPU and within the bound of the
      "cuda" backend; steady_state_frame_time beside the back-to-back
      captured flight. Each path's launches are counted from 0 and added to
-     the kernels line.
+     the kernels line;
+ 10. the validation matrix (run after phase 9, before phase 6):
+     swift3drenderer_tpu_torch.tools.validate.main(["--fuzz", "12"]), the
+     counterpart of tools/tpu_validate.py, 22 cases and 12 fuzz draws at
+     the TPU tool's sizes, each card frame within golden's bound (0.2 %
+     nearest, 0.3 % bilinear at tol 1) and bit-equal to the CPU's frame,
+     the paths the TPU tool compared bit-equal; a FAIL line fails the run.
+     Its launches are counted from 0 and added to the kernels line.
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -168,6 +181,12 @@ SCENE_RANKS = (2, 4, 8)    # the emulated triangle-sharded composites
 RANGE_RANKS = (1, 2, 4, 8)
 BANDS = (2, 4, 8)
 GRID = (2, 4)              # render_batch_sharded's (frame, fb) grid
+VALIDATE_FUZZ = 12         # phase 10: the TPU tool's fuzz draws 0-11
+# The forms phase 10's cases launch: no case renders a scene past the flat
+# route's slot limit with bilinear sampling, or tracks winners bilinear.
+VALIDATE_FORMS = ("raster_flat_nearest", "raster_flat_bilinear",
+                  "raster_segmented_nearest", "raster_flat_nearest_ids",
+                  "raster_segmented_nearest_ids")
 
 # Published NVIDIA H100 SXM peaks (data sheet; at the full 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -1281,7 +1300,7 @@ def run(parent: str | None = None) -> dict:
     from swift3drenderer_tpu_torch.models import SCENES, default_scene
     from swift3drenderer_tpu_torch.ops import raster
     from swift3drenderer_tpu_torch.parallel import (
-        Mesh, ShardedRenderer, make_mesh, merge_depth_gid,
+        Mesh, ShardedRenderer, gather_batch, make_mesh, merge_depth_gid,
         render_batch_sharded, render_scene_sharded)
     from swift3drenderer_tpu_torch.renderer import (
         Renderer, bucket_dims, build_setup, render_frames, render_range,
@@ -1778,7 +1797,8 @@ def run(parent: str | None = None) -> dict:
 
     # render_batch_sharded's 2 x 4 grid as its eight rank blocks (frames
     # split in two, rows in four bands; a rank's block needs no collective).
-    ms4 = torch.as_tensor(np.stack(poses[:4]), device=dev)
+    ms4_np = np.stack(poses[:4])
+    ms4 = torch.as_tensor(ms4_np, device=dev)
     for name, form in (("default", "raster_flat_nearest"),
                        ("stress840", "raster_segmented_nearest")):
         want_p, want_d = renderers[name].render_batch(np.stack(poses[:4]),
@@ -1798,36 +1818,75 @@ def run(parent: str | None = None) -> dict:
                 want_p, want_d, f"{name} render_batch_sharded grid vs render_batch")
         print(f"  {name}: the {GRID[0]}x{GRID[1]} grid's blocks stitch to "
               f"render_batch, bit for bit", flush=True)
+        # The same blocks replayed: ShardedRenderer's graph of each rank
+        # (a mesh that holds no group renders its block without one),
+        # captured at the first call and replayed at the second.
+        grid_r = [ShardedRenderer(scenes[name], mesh=Mesh(*GRID, r, dev, None,
+                                                          None, None),
+                                  device="cuda")
+                  for r in range(GRID[0] * GRID[1])]
+        for turn, want in (("captured", {form: 2 * len(grid_r)}),
+                           ("replayed", {})):
+            got = counted(
+                f"{name} ShardedRenderer {GRID[0]}x{GRID[1]} grid blocks "
+                f"{turn}", lambda: [sr._block(ms4_np, width, height)
+                                    for sr in grid_r], want)
+            for r, (block, sr) in enumerate(zip(got, grid_r)):
+                compare(*block, *blocks[r],
+                        f"{name} grid block {r} {turn} vs its eager block")
+        check(all(sr.graphs.captures == 1 and sr.graphs.replays == 2
+                  for sr in grid_r), f"{name}: grid blocks not one capture "
+              "and one replay each")
+        print(f"  {name}: the {GRID[0]}x{GRID[1]} grid's blocks captured and "
+              "replayed bit-equal to their eager blocks", flush=True)
 
-    # A real NCCL process group of one rank (rank 0, an in-process store).
+    # A real NCCL process group of one rank (rank 0, an in-process store),
+    # kept for phases 8 and 10 and destroyed when the run ends (main).
     import torch.distributed as dist
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
-    try:
-        mesh = make_mesh(1, 1, device="cuda")
-        for name, form in (("default", "raster_flat_nearest_ids"),
-                           ("stress840", "raster_segmented_nearest_ids")):
-            pix, depth = counted(
-                f"{name} render_scene_sharded, NCCL world of 1",
-                lambda: render_scene_sharded(arrays[name], m0, width=width,
-                                             height=height, mesh=mesh),
-                {form: 1})
-            compare(pix, depth, *renderers[name].render_device(
-                poses[0], width, height),
-                f"{name} render_scene_sharded (NCCL, 1 rank) vs render_device")
-        sr = ShardedRenderer(scenes["default"], mesh=mesh, device="cuda")
+    mesh = make_mesh(1, 1, device="cuda")
+    for name, form in (("default", "raster_flat_nearest_ids"),
+                       ("stress840", "raster_segmented_nearest_ids")):
         pix, depth = counted(
-            "default ShardedRenderer.render_batch, NCCL 1 x 1 mesh",
-            lambda: sr.render_batch(np.stack(poses[:4]), width, height),
-            {"raster_flat_nearest": 1})
-        compare(pix, depth, *renderers["default"].render_batch(
-            np.stack(poses[:4]), width, height),
-            "ShardedRenderer.render_batch (NCCL, 1 x 1) vs render_batch")
-        print("  NCCL: render_scene_sharded and ShardedRenderer.render_batch "
-              "bit-equal to the single-card renders", flush=True)
-    finally:
-        dist.destroy_process_group()
+            f"{name} render_scene_sharded, NCCL world of 1",
+            lambda: render_scene_sharded(arrays[name], m0, width=width,
+                                         height=height, mesh=mesh),
+            {form: 1})
+        compare(pix, depth, *renderers[name].render_device(
+            poses[0], width, height),
+            f"{name} render_scene_sharded (NCCL, 1 rank) vs render_device")
+    # ShardedRenderer.render_batch replays its rank's block: the first call
+    # captures (the warm-up and the captured launch), later calls launch
+    # through the graph; the all_gather runs after each replay.
+    sharded_r = ShardedRenderer(scenes["default"], mesh=mesh, device="cuda")
+    want_b = renderers["default"].render_batch(ms4_np, width, height)
+    eager_b = render_batch_sharded(sharded_r.dev, ms4, width=width,
+                                   height=height, mesh=mesh)
+    held = []
+    for call, want in enumerate(({"raster_flat_nearest": 2}, {}, {})):
+        pix, depth = counted(
+            f"default ShardedRenderer.render_batch, NCCL 1 x 1 mesh, call "
+            f"{call}", lambda: sharded_r.render_batch(
+                ms4_np if call != 1 else ms4_np[::-1].copy(), width, height),
+            want)
+        held.append((pix, depth))
+        if call != 1:
+            compare(pix, depth, *want_b, "ShardedRenderer.render_batch "
+                    "(NCCL, 1 x 1) vs render_batch")
+            compare(pix, depth, *eager_b, "ShardedRenderer.render_batch "
+                    "(NCCL, 1 x 1) vs its eager block")
+    compare(*held[0], *want_b, "ShardedRenderer.render_batch: a result "
+            "after the next replays")
+    compare(held[1][0].flip(0), held[1][1].flip(0), *want_b,
+            "ShardedRenderer.render_batch of the reversed poses")
+    check(sharded_r.graphs.captures == 1 and sharded_r.graphs.replays == 3,
+          f"ShardedRenderer: {sharded_r.graphs.captures} captures, "
+          f"{sharded_r.graphs.replays} replays for 3 calls of one key")
+    print("  NCCL: render_scene_sharded and ShardedRenderer.render_batch "
+          "(captured once, replayed) bit-equal to the single-card renders "
+          "and to the eager block", flush=True)
 
     # ---- 5. timings ----
     phase("5. timings")
@@ -2412,6 +2471,45 @@ def run(parent: str | None = None) -> dict:
     print("update_scene: 4 frames and a B = 8 batch replayed bit-equal to a "
           "fresh renderer's eager frames on the moved scene", flush=True)
 
+    # ShardedRenderer.render_batch on phase 4's NCCL world of one, default
+    # scene, B = 4 at 1920x1080 (the flight in 5 calls): eager (the rank's
+    # block launched op by op, then the all_gather) against replayed (the
+    # block's graph, then the all_gather), in turns eager, captured,
+    # captured, eager.
+    def sharded_eager_call(sr, ms, width, height):
+        return gather_batch(sr.mesh, *render_batch_sharded(
+            sr.dev, torch.as_tensor(np.stack(ms), device=dev), width=width,
+            height=height, config=sr.config, mesh=sr.mesh))
+
+    def sharded_captured_call(sr, ms, width, height):
+        return sr.render_batch(np.stack(ms), width, height)
+
+    width, height = RESOLUTIONS[0]
+    sb_calls = [poses[i:i + 4] for i in range(0, len(poses), 4)]
+    for ms in sb_calls:
+        same(sharded_captured_call(sharded_r, ms, width, height),
+             sharded_eager_call(sharded_r, ms, width, height),
+             "ShardedRenderer.render_batch: replayed vs eager")
+    sb_fns = {"eager": sharded_eager_call, "captured": sharded_captured_call}
+    sb_spans = {"eager": [], "captured": []}
+    sb_b2b = {"eager": [], "captured": []}
+    for who in ("eager", "captured", "captured", "eager"):
+        sb_spans[who] += call_times(sharded_r, sb_calls, width, height,
+                                    call=sb_fns[who])
+        sb_b2b[who].append(back_to_back_ms(sharded_r, sb_calls, width,
+                                           height, sb_fns[who]))
+    sharded_batch = {
+        "scene": "default", "at": f"{width}x{height}", "batch": 4,
+        "world": "NCCL, 1 rank", "calls": len(sb_calls), "card": card,
+        "captures": sharded_r.graphs.captures,
+        **{f"{who}_call_ms": spread(v) for who, v in sb_spans.items()},
+        "back_to_back_ms_per_call": {who: statistics.median(v)
+                                     for who, v in sb_b2b.items()}}
+    check(sharded_r.graphs.captures == 1,
+          f"ShardedRenderer: {sharded_r.graphs.captures} captures of one key")
+    print(f"captured ShardedRenderer.render_batch ({card}): "
+          f"{json.dumps(sharded_batch)}", flush=True)
+
     # The default scene captured through either route (recorded only).
     route_r = {route: Renderer(scenes["default"], device="cuda")
                for route in ("flat", "segmented")}
@@ -2473,11 +2571,33 @@ def run(parent: str | None = None) -> dict:
               f"{json.dumps(res)}", flush=True)
     captured_summary = {"cells": captured, "copy_out": copy_out,
                         "bucketed": buckets, "drag_resize": drag,
-                        "routes": captured_routes}
+                        "routes": captured_routes,
+                        "sharded_batch": sharded_batch}
 
     phase("9. app and tooling")
     app_summary = app_phase(torch, scenes, poses, renderers, captured,
                             launches)
+
+    # ---- 10. the validation matrix (tools/tpu_validate.py's cases and its
+    # first VALIDATE_FUZZ fuzz draws, 100k included) on the card, each card
+    # frame against golden and the CPU's frame; before the profiles of
+    # phase 6, which would inflate its n1-overhead reading ----
+    phase("10. validation matrix")
+    from swift3drenderer_tpu_torch.tools import validate
+    reset_launches(raster)
+    rc = validate.main(["--fuzz", str(VALIDATE_FUZZ)])
+    torch.cuda.synchronize()
+    got = read_launches(raster)
+    print(f"main path validation matrix: launches {json.dumps(got)}",
+          flush=True)
+    check(rc == 0, f"validation matrix: main returned {rc} (its FAIL lines "
+          "above)")
+    check(all(got[k] > 0 for k in VALIDATE_FORMS),
+          f"validation matrix: launches {got}, want each of "
+          f"{VALIDATE_FORMS} at least once")
+    for k in FORMS:
+        launches[k] += got[k]
+    print(f"validation matrix: ALL PASS on {card}", flush=True)
 
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
@@ -2679,6 +2799,10 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        dist = sys.modules.get("torch.distributed")
+        if dist is not None and dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
     print(json.dumps(result))
     return 0
 

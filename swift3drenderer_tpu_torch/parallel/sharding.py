@@ -26,6 +26,13 @@ an all_gather and a merge in rank order.
 Collectives run over NCCL for CUDA tensors and gloo for CPU ones. The caller
 initialises the default process group (address, world size, rank);
 ``make_mesh`` builds the grid's sub-groups on it.
+
+On the card ``ShardedRenderer.render_batch`` replays its rank's block from a
+CUDA graph (``graphs.FrameGraphs``, one per (W, H, B)), the counterpart of
+the JAX ``render_batch_sharded``'s compile, and runs the all_gather eagerly
+after the replay. The block needs no collective, so its graph is checked on
+one card: on an NCCL world of one rank, and as each block of an emulated
+grid. ``render_scene_sharded`` stays eager (its docstring says why).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch.distributed as dist
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..convert import resolve_device
+from ..graphs import FrameGraphs
 from ..ops import raster_xla
 from ..ops.raster import NO_GID
 from ..renderer import (build_setup, check_backend, rasterize_backend,
@@ -223,7 +231,12 @@ def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
     (H, W) f32), equal bit for bit to ``render_frame`` on one device.
 
     ``backend="xla"`` cuts the full setup table into slot ranges instead
-    (``_xla_range``) and gives the single ``render_frame_xla`` frame."""
+    (``_xla_range``) and gives the single ``render_frame_xla`` frame.
+
+    Runs eagerly, also on the card: the composite is collectives between
+    the ranges (the butterfly's ``batch_isend_irecv`` or an all_gather), a
+    free function has no owner to keep CUDA graphs, and NCCL point-to-point
+    under capture cannot be checked beyond one rank on one card."""
     _member(mesh)
     check_backend(backend)
     if backend == "xla":
@@ -285,7 +298,13 @@ def gather_batch(mesh: Mesh, pix: torch.Tensor, depth: torch.Tensor
 class ShardedRenderer:
     """Multi-device front-end mirroring ``Renderer``'s API for camera
     batches; the scene stays on ``device`` (NCCL ranks on CUDA, gloo ranks
-    on the CPU)."""
+    on the CPU).
+
+    On the card each ``render_batch`` replays this rank's block from a CUDA
+    graph of key ("exact", W, H, B), captured at the key's first call
+    (``graphs``, as ``Renderer`` keeps them), and gathers the blocks eagerly
+    after the replay on the current stream. On the CPU every call runs
+    eagerly."""
 
     def __init__(self, scene, config: RenderConfig = DEFAULT_CONFIG,
                  mesh: Optional[Mesh] = None, device="cuda") -> None:
@@ -297,13 +316,32 @@ class ShardedRenderer:
             raise ValueError(f"the mesh's collectives run on {self.mesh.device}, "
                              f"the scene on {self.device}")
         self.dev = scene_to_device(scene, self.mesh.device)
+        self.graphs = (FrameGraphs(self.mesh.device)
+                       if self.mesh.device.type == "cuda" else None)
+
+    def _block(self, ms: np.ndarray, width: int, height: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's ``render_batch_sharded`` block of the poses ``ms``
+        (B, 3, 4): on the card the outputs of the replayed graph, which its
+        next replay overwrites. Needs no collective, so a mesh that holds no
+        group (one rank of an emulated grid) renders it too."""
+        b = ms.shape[0]
+
+        def frame(x):
+            return render_batch_sharded(self.dev, x.view(b, 3, 4), width=width,
+                                        height=height, config=self.config,
+                                        mesh=self.mesh)
+        inputs = ms.reshape(-1)
+        if self.graphs is None:
+            return frame(torch.from_numpy(inputs))
+        return self.graphs.run(("exact", width, height, b), frame, inputs)
 
     def render_batch(self, matrices, width: int, height: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render a camera batch ((B, 3, 4)) over the mesh; every rank
-        returns the whole batch: pixels (B, H, W) int32, depth f32."""
-        ms = torch.as_tensor(np.asarray(matrices, np.float32),
-                             device=self.mesh.device)
-        return gather_batch(self.mesh, *render_batch_sharded(
-            self.dev, ms, width=width, height=height, config=self.config,
-            mesh=self.mesh))
+        returns the whole batch: pixels (B, H, W) int32, depth f32, new
+        tensors that the next call does not touch."""
+        ms = np.asarray(matrices, np.float32)
+        if ms.ndim != 3 or ms.shape[1:] != (3, 4):
+            raise ValueError(f"need a (B, 3, 4) batch of matrices, got {ms.shape}")
+        return gather_batch(self.mesh, *self._block(ms, width, height))

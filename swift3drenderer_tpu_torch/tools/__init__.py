@@ -14,6 +14,12 @@ per mode as the tool does:
 
 A mode that fails raises: nothing is caught, and nothing falls back.
 
+``validate`` is the counterpart of ``tools/tpu_validate.py``: its 22 cases
+and its fuzz draws through the port's paths, each held to the golden oracle
+and, on the card, to the CPU's frame bit for bit
+(``python -m swift3drenderer_tpu_torch.tools.validate [--device cpu]
+[--fuzz N] [--no-100k]``).
+
 ``seg_variants`` is a measurement of the port's own: builds of the raster
 kernels (segmented and flat) with one constant changed, timed against the
 default build on the card

@@ -9,8 +9,11 @@ slot records and residual filter at several K and G, and the CUDA renderer (sing
 field (3,078 slots, the segmented path); the captured frames (CUDA graphs)
 against the eager frames, bucketed against exact, after ``update_scene``,
 their ownership, counters and failed captures; the probes of
-``swift3drenderer_tpu_torch.tools`` against their plain versions; and the
-app's flight and the ``"xla"`` backend on the card against the CPU.
+``swift3drenderer_tpu_torch.tools`` against their plain versions; the
+app's flight and the ``"xla"`` backend on the card against the CPU; and
+``ShardedRenderer.render_batch`` replayed from its graph (on an NCCL world
+of one rank, and each block of an emulated 2 x 4 grid) against its eager
+block.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -702,3 +705,71 @@ def test_xla_backend_on_cuda_equals_cpu(sampling):
     pb, db = card.render(poses[1], *RAGGED, bucketed=True)
     np.testing.assert_array_equal(pb, bc[1].numpy().view(np.uint32))
     np.testing.assert_array_equal(db, bdc[1].numpy())
+
+
+GRID = (2, 4)             # render_batch_sharded's emulated (frame, fb) grid
+
+
+@pytest.mark.cuda
+def test_sharded_render_batch_replays_on_cuda():
+    """ShardedRenderer.render_batch on an NCCL world of one rank replays
+    its rank's block from one graph per (W, H, B): bit-equal to the eager
+    block and to Renderer.render_batch, one capture then replays, and what
+    it returns survives the next call."""
+    import torch.distributed as dist
+    from swift3drenderer_tpu_torch.parallel import (
+        ShardedRenderer, make_mesh, render_batch_sharded)
+
+    need_card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        scene = SCENES["default"](seed=0)
+        sr = ShardedRenderer(scene, mesh=make_mesh(1, 1, device="cuda"),
+                             device="cuda")
+        r = port.Renderer(scene, device="cuda")
+        poses = flight(8)
+        held = []
+        for i in (0, 4):
+            ms = np.stack(poses[i:i + 4])
+            got = sr.render_batch(ms, W, H)
+            held.append((got, ms))
+            block = render_batch_sharded(
+                sr.dev, torch.as_tensor(ms, device="cuda"), width=W,
+                height=H, mesh=sr.mesh)
+            assert_equal_on_card(got, block)
+            assert_equal_on_card(got, r.render_batch(ms, W, H))
+        assert sr.graphs.captures == 1 and sr.graphs.replays == 2
+        assert_equal_on_card(held[0][0], eager(r, list(held[0][1]), W, H))
+        sr.render_batch(np.stack(poses[:2]), W, H)
+        assert sr.graphs.captures == 2
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "stress"])
+def test_grid_blocks_replay_equal_eager_blocks_on_cuda(name):
+    """Each of the eight blocks of the emulated 2 x 4 grid (a mesh of one
+    rank that holds no group), replayed from its renderer's graph, equals
+    its eager render_batch_sharded block, on the flat route (default) and
+    the segmented one (stress_scene(objects=128))."""
+    from swift3drenderer_tpu_torch.parallel import (
+        Mesh, ShardedRenderer, render_batch_sharded)
+
+    need_card()
+    kw = dict(objects=128) if name == "stress" else {}
+    scene = SCENES[name](seed=0, **kw)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ms = np.stack(flight(4))
+    for rank in range(GRID[0] * GRID[1]):
+        sr = ShardedRenderer(scene, mesh=Mesh(*GRID, rank, dev, None, None,
+                                              None), device="cuda")
+        want = render_batch_sharded(sr.dev, torch.as_tensor(ms, device=dev),
+                                    width=W, height=H, mesh=sr.mesh)
+        for _ in range(2):
+            got = sr._block(ms, W, H)
+            assert_equal_on_card(got, want)
+        assert tuple(got[0].shape) == (4 // GRID[0], H // GRID[1], W)
+        assert sr.graphs.captures == 1 and sr.graphs.replays == 2
