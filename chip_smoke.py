@@ -41,18 +41,28 @@ Phases; any failed check raises and the script exits non-zero:
      config 1), every batch frame bit-equal to its single-frame render; then
      hold the card's output against the plain CPU path on small frames (one
      of them ragged), single frames and batches, nearest and bilinear; then
-     the multi-device paths: render_scene_sharded on an NCCL group of one
-     rank and ShardedRenderer.render_batch on a 1 x 1 mesh (one card holds
-     one NCCL rank; the group lives to the end of the run), its rank's
-     block captured at the first call and replayed at the next two, each
-     call bit-equal to the eager block and to render_batch, and the N-rank
-     composites run as N per-range
+     the multi-device paths: the N-rank composites run as N per-range
      pipelines (renderer.render_range, each the device work of one rank)
      merged with merge_depth_gid, N = 2, 4, 8, on the default scene, stress
      840 and stress100k at 1920x1080 and, bilinear, the icosahedron and
-     stress 840, and render_batch_sharded's 2 x 4 grid as its eight rank
+     stress 840; render_batch_sharded's 2 x 4 grid as its eight rank
      blocks, eager and then through ShardedRenderer's graph of each rank
-     (captured, replayed): each bit-equal to the single-card render;
+     (captured, replayed): each bit-equal to the single-card render; every
+     rank's range of the N = 2, 4, 8 meshes of the default scene, stress
+     840 and stress100k replayed from render_scene_sharded's graph cache
+     (one capture, then replays at a new pose and the first), bit-equal to
+     its eager render_range, the ranges merged equal to the single render;
+     on an NCCL group of one rank (one card holds one NCCL rank; the group
+     lives to the end of the run) render_scene_sharded on the same three
+     scenes, three calls each (one capture, then replays), each bit-equal
+     to render_device and to its eager range, the first call's result kept
+     after the third; ShardedRenderer.render_batch on the 1 x 1 mesh, its
+     rank's block captured at the first call and replayed at the next two,
+     each call bit-equal to the eager block and to render_batch;
+     ShardedRenderer(backend="xla") (default, B = 4, 640x480) captured and
+     replayed, bit-equal to Renderer(backend="xla").render_batch; and the
+     multi-chip hook, entry.dryrun_multichip on every card (its ranks are
+     spawned processes that report their launches);
   5. time, with CUDA events after a warm-up: each cell's eager frame (or
      batch call: render_frames launched op by op), the front-end stages, its kernel (with the L2 cache cold, as a
      frame finds it) and plain version, beside the least time the card could
@@ -106,10 +116,14 @@ Phases; any failed check raises and the script exits non-zero:
      back; the copy out of the graph's outputs; capture ms and memory
      reserved per key; the default scene captured through either route;
      ShardedRenderer.render_batch (default, B = 4, 1920x1080, NCCL world
-     of one) eager against replayed, in the same turns;
-     and from torch.profiler each captured flight's busy share, kernels
-     per replayed frame and device-to-host copies and scalar reads (must
-     be none);
+     of one) eager against replayed, in the same turns; render_scene_sharded
+     (default, stress 840, stress100k at 1920x1080, NCCL world of one):
+     the eager sharded frame, the replayed one and the captured frame, bit
+     for bit and then in turns, with the n1 overheads and each key's
+     capture ms and reserved MiB; and from torch.profiler each captured
+     flight's, each replayed sharded flight's and stress100k's eight
+     replayed ranges' busy share, kernels per replayed frame and
+     device-to-host copies and scalar reads (must be none);
   9. the app and the tooling (run after phase 8, before phase 6): the
      headless flight (run_headless, default scene, 1920x1080, 120 frames
      of "60:w;60:w mx2", PPMs every 30 frames) through the flat kernel's
@@ -181,6 +195,12 @@ SCENE_RANKS = (2, 4, 8)    # the emulated triangle-sharded composites
 RANGE_RANKS = (1, 2, 4, 8)
 BANDS = (2, 4, 8)
 GRID = (2, 4)              # render_batch_sharded's (frame, fb) grid
+# The triangle-sharded frames replayed from render_scene_sharded's graph
+# cache, with the tracked form each rank's range launches.
+SCENE_SHARDED = (("default", "raster_flat_nearest_ids"),
+                 ("stress840", "raster_segmented_nearest_ids"),
+                 ("stress100k", "raster_segmented_nearest_ids"))
+XLA_BATCH_SIZE = (640, 480)   # ShardedRenderer(backend="xla")'s B = 4 batch
 VALIDATE_FUZZ = 12         # phase 10: the TPU tool's fuzz draws 0-11
 # The forms phase 10's cases launch: no case renders a scene past the flat
 # route's slot limit with bilinear sampling, or tracks winners bilinear.
@@ -1299,9 +1319,10 @@ def run(parent: str | None = None) -> dict:
     from swift3drenderer_tpu_torch.config import DEFAULT_CONFIG
     from swift3drenderer_tpu_torch.models import SCENES, default_scene
     from swift3drenderer_tpu_torch.ops import raster
+    from swift3drenderer_tpu_torch.entry import dryrun_multichip
     from swift3drenderer_tpu_torch.parallel import (
         Mesh, ShardedRenderer, gather_batch, make_mesh, merge_depth_gid,
-        render_batch_sharded, render_scene_sharded)
+        render_batch_sharded, render_scene_sharded, sharding)
     from swift3drenderer_tpu_torch.renderer import (
         Renderer, bucket_dims, build_setup, render_frames, render_range,
         scene_to_device)
@@ -1840,6 +1861,66 @@ def run(parent: str | None = None) -> dict:
         print(f"  {name}: the {GRID[0]}x{GRID[1]} grid's blocks captured and "
               "replayed bit-equal to their eager blocks", flush=True)
 
+    # render_scene_sharded's rank ranges replayed from its graph cache: each
+    # rank of the emulated N-rank meshes (a Mesh of one rank that holds no
+    # group replays its range without a collective), called at poses 0, 1
+    # and 0 (a capture, then two replays that read new matrices), each call
+    # bit-equal to its eager render_range; the third calls' ranges merged
+    # with merge_depth_gid give the single frame.
+    scene_cache = render_scene_sharded.graphs
+    scene_captures = []     # capture ms and reserved MiB of each key
+
+    def capture_stats(arr, mesh):
+        """The capture ms and reserved bytes of the key of (arr, mesh)."""
+        return scene_cache.capture_stats(
+            ("scene", *RESOLUTIONS[0], cfg, "cuda", mesh),
+            [arr[k] for k in sorted(arr)])
+
+    def record_capture(name, n, rank, mesh):
+        stats = capture_stats(composites[name][0], mesh)
+        scene_captures.append({
+            "scene": name, "ranks": n, "rank": rank,
+            "capture_ms": stats["capture_ms"],
+            "reserved_mib": stats["reserved_bytes"] / 2 ** 20})
+
+    ms3 = [torch.as_tensor(poses[i], device=dev) for i in (0, 1, 2)]
+    for name, form in SCENE_SHARDED:
+        arr = composites[name][0]
+        want_p, want_d = renderers[name].render_device(poses[0], width, height)
+        for n in SCENE_RANKS:
+            acc = None
+            for r in range(n):
+                lo, count = rank_range(name, n, r)
+                mesh_r = Mesh(1, n, r, dev, None, None, None)
+                eager = [render_range(arr, m, lo=lo, count=count, width=width,
+                                      height=height, config=cfg)
+                         for m in ms3[:2]]
+                captures = scene_cache.captures
+                for call, (pose, want) in enumerate(((0, {form: 2}), (1, {}),
+                                                     (0, {}))):
+                    packed, graphed = counted(
+                        f"{name} rank {r} of {n} replayed range, call {call}",
+                        lambda: sharding._packed_range(
+                            arr, ms3[pose], width=width, height=height,
+                            config=cfg, mesh=mesh_r, backend="cuda"), want)
+                    got = sharding._unpack(packed)
+                    check(graphed, f"{name} rank {r} of {n}: not replayed")
+                    compare(*got[:2], *eager[pose][:2], f"{name} rank {r} of "
+                            f"{n} replayed range call {call} vs render_range")
+                    check(torch.equal(got[2], eager[pose][2]),
+                          f"{name} rank {r} of {n}: gid planes differ")
+                check(scene_cache.captures - captures == 1,
+                      f"{name} rank {r} of {n}: "
+                      f"{scene_cache.captures - captures} captures in 3 calls")
+                record_capture(name, n, r, mesh_r)
+                got = tuple(p.clone() for p in got)
+                acc = got if acc is None else merge_depth_gid(*acc, *got)
+            compare(*acc[:2], want_p, want_d, f"{name} {n} replayed ranges "
+                    "merged vs single render")
+        print(f"  {name}: every rank of the {SCENE_RANKS}-rank meshes "
+              "captured once, replayed bit-equal to its eager range; merged, "
+              "the single render", flush=True)
+
     # A real NCCL process group of one rank (rank 0, an in-process store),
     # kept for phases 8 and 10 and destroyed when the run ends (main).
     import torch.distributed as dist
@@ -1847,16 +1928,43 @@ def run(parent: str | None = None) -> dict:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1)
     mesh = make_mesh(1, 1, device="cuda")
-    for name, form in (("default", "raster_flat_nearest_ids"),
-                       ("stress840", "raster_segmented_nearest_ids")):
-        pix, depth = counted(
-            f"{name} render_scene_sharded, NCCL world of 1",
-            lambda: render_scene_sharded(arrays[name], m0, width=width,
-                                         height=height, mesh=mesh),
-            {form: 1})
-        compare(pix, depth, *renderers[name].render_device(
-            poses[0], width, height),
-            f"{name} render_scene_sharded (NCCL, 1 rank) vs render_device")
+    # render_scene_sharded called three times (poses 0, 1, 2): one capture
+    # (its warm-up and its captured launch), then replays; each call
+    # bit-equal to render_device and to the eager range; the first call's
+    # result unchanged after the third.
+    for name, form in SCENE_SHARDED:
+        arr = arrays[name]
+        captures, replays = scene_cache.captures, scene_cache.replays
+        held = []
+        for call, want in enumerate(({form: 2}, {}, {})):
+            pix, depth = counted(
+                f"{name} render_scene_sharded, NCCL world of 1, call {call}",
+                lambda: render_scene_sharded(arr, ms3[call], width=width,
+                                             height=height, mesh=mesh), want)
+            held.append((pix, depth))
+            compare(pix, depth, *renderers[name].render_device(
+                poses[call], width, height),
+                f"{name} render_scene_sharded (NCCL, 1 rank) call {call} vs "
+                "render_device")
+            compare(pix, depth, *sharding._scene_range(
+                arr, ms3[call], width=width, height=height, config=cfg,
+                mesh=mesh, backend="cuda")[:2],
+                f"{name} render_scene_sharded call {call} vs its eager range")
+        compare(*held[0], *renderers[name].render_device(poses[0], width,
+                                                         height),
+                f"{name} render_scene_sharded: the first call's result after "
+                "the third")
+        check(scene_cache.captures - captures == 1
+              and scene_cache.replays - replays == 3,
+              f"{name} render_scene_sharded: "
+              f"{scene_cache.captures - captures} captures and "
+              f"{scene_cache.replays - replays} replays for 3 calls")
+        record_capture(name, 1, 0, mesh)
+    print("  NCCL: render_scene_sharded captured once a scene, replayed, "
+          "bit-equal to render_device and to its eager range; held results "
+          "kept", flush=True)
+    for row in scene_captures:
+        print(f"render_scene_sharded capture: {json.dumps(row)}", flush=True)
     # ShardedRenderer.render_batch replays its rank's block: the first call
     # captures (the warm-up and the captured launch), later calls launch
     # through the graph; the all_gather runs after each replay.
@@ -1884,9 +1992,44 @@ def run(parent: str | None = None) -> dict:
     check(sharded_r.graphs.captures == 1 and sharded_r.graphs.replays == 3,
           f"ShardedRenderer: {sharded_r.graphs.captures} captures, "
           f"{sharded_r.graphs.replays} replays for 3 calls of one key")
-    print("  NCCL: render_scene_sharded and ShardedRenderer.render_batch "
-          "(captured once, replayed) bit-equal to the single-card renders "
-          "and to the eager block", flush=True)
+    print("  NCCL: ShardedRenderer.render_batch (captured once, replayed) "
+          "bit-equal to the single-card renders and to the eager block",
+          flush=True)
+
+    # ShardedRenderer(backend="xla"): the rank's block rasterized with
+    # ops.raster_xla, captured at the first call and replayed at the second,
+    # bit-equal to Renderer(backend="xla").render_batch; no kernel launches.
+    xla_sr = ShardedRenderer(scenes["default"], mesh=mesh, device="cuda",
+                             backend="xla")
+    xla_r = Renderer(scenes["default"], device="cuda", backend="xla")
+    for call in range(2):
+        ms_x = np.stack(poses[4 * call:4 * call + 4])
+        got = counted(f"default ShardedRenderer(backend=\"xla\") B=4 "
+                      f"{XLA_BATCH_SIZE[0]}x{XLA_BATCH_SIZE[1]}, call {call}",
+                      lambda: xla_sr.render_batch(ms_x, *XLA_BATCH_SIZE), {})
+        compare(*got, *xla_r.render_batch(ms_x, *XLA_BATCH_SIZE),
+                f"ShardedRenderer(backend=\"xla\") call {call} vs "
+                "Renderer(backend=\"xla\").render_batch")
+    check(xla_sr.graphs.captures == 1 and xla_sr.graphs.replays == 2,
+          f"ShardedRenderer(backend=\"xla\"): {xla_sr.graphs.captures} "
+          f"captures, {xla_sr.graphs.replays} replays for 2 calls")
+    print("  NCCL: ShardedRenderer(backend=\"xla\") captured once, replayed "
+          "bit-equal to Renderer(backend=\"xla\").render_batch", flush=True)
+
+    # The multi-chip hook on every card: its ranks are processes of their
+    # own (spawned, each an NCCL world on a FileStore of its own), which
+    # count their launches and report them.
+    t0 = time.perf_counter()
+    hook = dryrun_multichip(torch.cuda.device_count())
+    hook_s = time.perf_counter() - t0
+    hook_launches = {k: sum(r[k] for r in hook["launches"]) for k in FORMS}
+    print(f"main path dryrun_multichip({torch.cuda.device_count()}): "
+          f"{hook_s:.1f} s, launches {json.dumps(hook_launches)}", flush=True)
+    check(hook_launches["raster_flat_nearest"] > 0
+          and hook_launches["raster_flat_nearest_ids"] > 0,
+          f"dryrun_multichip: launches {hook_launches}")
+    for k in FORMS:
+        launches[k] += hook_launches[k]
 
     # ---- 5. timings ----
     phase("5. timings")
@@ -2510,6 +2653,64 @@ def run(parent: str | None = None) -> dict:
     print(f"captured ShardedRenderer.render_batch ({card}): "
           f"{json.dumps(sharded_batch)}", flush=True)
 
+    # render_scene_sharded on phase 4's NCCL world of one at 1920x1080 over
+    # the flight (stress100k: its first POSES_100K poses): the replayed
+    # sharded frame (the rank's range and pack from the function's graph
+    # cache, then the merge, which makes no step on one rank, and the copy
+    # out) against the captured frame (Renderer.render_device) and the eager
+    # sharded frame (the range op by op, then the merge), each pose first
+    # held bit-equal across the three, then timed in turns eager, replayed,
+    # captured, captured, replayed, eager.
+    def eager_sharded(arr, ms, width, height):
+        return sharding._unpack(sharding._butterfly_merge(
+            mesh, sharding._pack(*sharding._scene_range(
+                arr, ms[0], width=width, height=height, config=cfg,
+                mesh=mesh, backend="cuda"))))[:2]
+
+    def replayed_sharded(arr, ms, width, height):
+        return render_scene_sharded(arr, ms[0], width=width, height=height,
+                                    mesh=mesh)
+
+    width, height = RESOLUTIONS[0]
+    scene_sharded = []
+    for name, _ in SCENE_SHARDED:
+        n_poses = POSES_100K if name == "stress100k" else FLIGHT_POSES
+        host_calls = [[m] for m in poses[:n_poses]]
+        dev_calls = [[torch.as_tensor(m, device=dev)] for m in poses[:n_poses]]
+        arr, r = arrays[name], renderers[name]
+        captures = scene_cache.captures
+        for (m,), (mt,) in zip(host_calls, dev_calls):
+            want = single_call(r, [m], width, height)
+            same(replayed_sharded(arr, [mt], width, height), want,
+                 f"{name}: replayed sharded frame vs captured frame")
+            same(eager_sharded(arr, [mt], width, height), want,
+                 f"{name}: eager sharded frame vs captured frame")
+        turns = {"eager": [], "replayed": [], "captured": []}
+        for who in ("eager", "replayed", "captured", "captured", "replayed",
+                    "eager"):
+            if who == "captured":
+                turns[who] += call_times(r, host_calls, width, height,
+                                         call=single_call)
+            else:
+                fn = eager_sharded if who == "eager" else replayed_sharded
+                turns[who] += call_times(arr, dev_calls, width, height,
+                                         call=fn)
+        med = {who: statistics.median(v) for who, v in turns.items()}
+        stats = capture_stats(arr, mesh)
+        row = {"scene": name, "at": f"{width}x{height}",
+               "world": "NCCL, 1 rank", "calls": n_poses, "card": card,
+               **{f"{who}_frame_ms": spread(v) for who, v in turns.items()},
+               "n1_overhead_replayed": med["replayed"] / med["captured"],
+               "n1_overhead_eager": med["eager"] / med["captured"],
+               "captures_in_phase": scene_cache.captures - captures,
+               "capture_ms": stats["capture_ms"],
+               "reserved_mib": stats["reserved_bytes"] / 2 ** 20}
+        check(row["captures_in_phase"] == 0,
+              f"{name}: render_scene_sharded captured again in phase 8")
+        scene_sharded.append(row)
+        print(f"replayed render_scene_sharded {name} ({card}): "
+              f"{json.dumps(row)}", flush=True)
+
     # The default scene captured through either route (recorded only).
     route_r = {route: Renderer(scenes["default"], device="cuda")
                for route in ("flat", "segmented")}
@@ -2569,10 +2770,49 @@ def run(parent: str | None = None) -> dict:
             res[f"{route}_busy_share"] = prof["busy"]
         print(f"captured route profile default {width}x{height}: "
               f"{json.dumps(res)}", flush=True)
+    # The replayed sharded frames, and every rank's replayed range of the
+    # 8-rank stress100k mesh: no device-to-host copy and no scalar read.
+    width, height = RESOLUTIONS[0]
+    for row in scene_sharded:
+        name = row["scene"]
+        calls = [torch.as_tensor(m, device=dev)
+                 for m in poses[:row["calls"]]]
+        prof = device_busy(torch, lambda: [replayed_sharded(
+            arrays[name], [mt], width, height) for mt in calls])
+        row.update({"device_busy_share": prof["busy"],
+                    "device_kernels_per_call": prof["launched"] / len(calls),
+                    "device_us_per_frame": sum(prof["per_kernel"].values())
+                    / len(calls),
+                    "d2h_copies": prof["d2h"],
+                    "scalar_reads": prof["scalar_reads"]})
+        print(f"replayed render_scene_sharded profile {name}: busy "
+              f"{prof['busy']}, {row['device_kernels_per_call']} kernels per "
+              f"call, {row['device_us_per_frame']} device us per frame, "
+              f"device-to-host copies {prof['d2h']}, scalar reads "
+              f"{prof['scalar_reads']}", flush=True)
+        check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+              f"replayed render_scene_sharded {name}: copied to the host")
+    n = SCENE_RANKS[-1]
+    prof = device_busy(torch, lambda: [sharding._packed_range(
+        arrays["stress100k"], m0, width=width, height=height, config=cfg,
+        mesh=Mesh(1, n, r, dev, None, None, None), backend="cuda")
+        for r in range(n)])
+    ranges_profile = {"scene": "stress100k", "ranks": n,
+                      "device_busy_share": prof["busy"],
+                      "device_kernels_per_range": prof["launched"] / n,
+                      "d2h_copies": prof["d2h"],
+                      "scalar_reads": prof["scalar_reads"]}
+    print(f"replayed ranges profile: {json.dumps(ranges_profile)}",
+          flush=True)
+    check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
+          f"stress100k's {n} replayed ranges: copied to the host")
     captured_summary = {"cells": captured, "copy_out": copy_out,
                         "bucketed": buckets, "drag_resize": drag,
                         "routes": captured_routes,
-                        "sharded_batch": sharded_batch}
+                        "sharded_batch": sharded_batch,
+                        "scene_sharded": scene_sharded,
+                        "scene_sharded_captures": scene_captures,
+                        "replayed_ranges_profile": ranges_profile}
 
     phase("9. app and tooling")
     app_summary = app_phase(torch, scenes, poses, renderers, captured,

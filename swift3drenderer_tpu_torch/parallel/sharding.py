@@ -27,12 +27,15 @@ Collectives run over NCCL for CUDA tensors and gloo for CPU ones. The caller
 initialises the default process group (address, world size, rank);
 ``make_mesh`` builds the grid's sub-groups on it.
 
-On the card ``ShardedRenderer.render_batch`` replays its rank's block from a
-CUDA graph (``graphs.FrameGraphs``, one per (W, H, B)), the counterpart of
-the JAX ``render_batch_sharded``'s compile, and runs the all_gather eagerly
-after the replay. The block needs no collective, so its graph is checked on
-one card: on an NCCL world of one rank, and as each block of an emulated
-grid. ``render_scene_sharded`` stays eager (its docstring says why).
+On the card the device work of a rank replays from a CUDA graph, the
+counterpart of the JAX functions' compile, and the collectives run eagerly
+after the replay, on the current stream: ``ShardedRenderer.render_batch``
+replays its rank's block (``graphs.FrameGraphs``, one per (W, H, B)) and
+then all_gathers; ``render_scene_sharded`` replays its rank's triangle range
+and pack from the graph cache it keeps (``render_scene_sharded.graphs``, a
+``graphs.GraphCache``) and then merges. Neither graph holds a collective, so
+each is checked on one card: on an NCCL world of one rank, and as each rank
+of an emulated mesh.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ import torch.distributed as dist
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..convert import resolve_device
-from ..graphs import FrameGraphs
+from ..graphs import FrameGraphs, GraphCache
 from ..ops import raster_xla
 from ..ops.raster import NO_GID
 from ..renderer import (build_setup, check_backend, rasterize_backend,
@@ -218,6 +221,50 @@ def _xla_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width: int,
     return pix, ooz, torch.where(ooz > 0, lo, NO_GID).to(torch.int32)
 
 
+def _scene_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
+                 width: int, height: int, config: RenderConfig, mesh: Mesh,
+                 backend: str) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """This rank's range of the triangle-sharded frame, run eagerly:
+    (pixels, 1/z, gid) over the whole frame. ``"cuda"``: triangles [r * L,
+    (r + 1) * L), L = ceil(T / n), through ``render_range`` (one tracked
+    raster launch); ``"xla"``: ``_xla_range``. The reference every replay of
+    the range is held against."""
+    if backend == "xla":
+        return _xla_range(dev, m, width=width, height=height, config=config,
+                          mesh=mesh)
+    local_t = math.ceil(dev["vert_c"].shape[0] / mesh.size)
+    return render_range(dev, m, lo=mesh.rank * local_t, count=local_t,
+                        width=width, height=height, config=config)
+
+
+# The most rank ranges ``render_scene_sharded`` keeps captured at once, each
+# its own graph and memory pool (a stress100k frame's graph reserved 262 MiB
+# at 1920x1080, PERF.md §5); the least recently used goes first.
+SCENE_GRAPHS_MAX = 32
+
+
+def _packed_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
+                  width: int, height: int, config: RenderConfig, mesh: Mesh,
+                  backend: str) -> Tuple[torch.Tensor, bool]:
+    """This rank's range packed (``_pack``: (3, H, W) int32) and whether it
+    is a replayed graph's output. On the card it replays from
+    ``render_scene_sharded.graphs``, keyed by (W, H, config, backend, mesh)
+    and the scene's tensors, captured at the key's first call; the next
+    replay of the key overwrites the output. On the CPU it runs eagerly.
+    Needs no collective, so one rank of an emulated mesh (a ``Mesh`` that
+    holds no group) replays it too."""
+    def frame(x):
+        return (_pack(*_scene_range(dev, x.reshape(3, 4), width=width,
+                                    height=height, config=config, mesh=mesh,
+                                    backend=backend)),)
+    if dev["vert_c"].device.type != "cuda":
+        return frame(m)[0], False
+    static = ("scene", width, height, config, backend, mesh)
+    return render_scene_sharded.graphs.run(
+        static, [dev[k] for k in sorted(dev)], frame, m)[0], True
+
+
 def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
                          width: int, height: int,
                          config: RenderConfig = DEFAULT_CONFIG, mesh: Mesh,
@@ -233,27 +280,33 @@ def render_scene_sharded(dev: Dict[str, torch.Tensor], m: torch.Tensor, *,
     ``backend="xla"`` cuts the full setup table into slot ranges instead
     (``_xla_range``) and gives the single ``render_frame_xla`` frame.
 
-    Runs eagerly, also on the card: the composite is collectives between
-    the ranges (the butterfly's ``batch_isend_irecv`` or an all_gather), a
-    free function has no owner to keep CUDA graphs, and NCCL point-to-point
-    under capture cannot be checked beyond one rank on one card."""
+    On the card the rank's range (front-end, tracked raster launch) and its
+    pack replay from a CUDA graph, as the JAX function compiles: the graph
+    cache ``render_scene_sharded.graphs`` keeps one per (W, H, config,
+    backend, mesh and its rank, the scene's tensors by identity), captured
+    at its first call from ``m`` (3, 4) float32, which later calls copy in
+    on the card. The merge is not captured: the butterfly's
+    ``batch_isend_irecv`` or the all_gather runs eagerly after the replay
+    on the current stream (NCCL point-to-point under capture cannot be
+    checked beyond one rank on one card). What it returns is the caller's:
+    a mesh of one rank, which merges nothing, gets a copy of the graph's
+    planes. On the CPU every call runs eagerly."""
     _member(mesh)
     check_backend(backend)
-    if backend == "xla":
-        pix, ooz, gid = _xla_range(dev, m, width=width, height=height,
-                                   config=config, mesh=mesh)
-    else:
-        local_t = math.ceil(dev["vert_c"].shape[0] / mesh.size)
-        pix, ooz, gid = render_range(dev, m, lo=mesh.rank * local_t,
-                                     count=local_t, width=width,
-                                     height=height, config=config)
-    packed = _pack(pix, ooz, gid)
+    packed, graphed = _packed_range(dev, m, width=width, height=height,
+                                    config=config, mesh=mesh, backend=backend)
+    out = packed
     if all(s & (s - 1) == 0 for s in (mesh.n_frame, mesh.n_fb)):
         packed = _butterfly_merge(mesh, packed)
     else:
         packed = _gather_merge(mesh, packed, config.background_packed)
     pix, ooz, _ = _unpack(packed)
+    if graphed and packed is out:
+        pix, ooz = pix.clone(), ooz.clone()
     return pix, ooz
+
+
+render_scene_sharded.graphs = GraphCache(SCENE_GRAPHS_MAX)
 
 
 def render_batch_sharded(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
@@ -298,18 +351,24 @@ def gather_batch(mesh: Mesh, pix: torch.Tensor, depth: torch.Tensor
 class ShardedRenderer:
     """Multi-device front-end mirroring ``Renderer``'s API for camera
     batches; the scene stays on ``device`` (NCCL ranks on CUDA, gloo ranks
-    on the CPU).
+    on the CPU). ``backend`` picks each rank's rasterizer, as
+    ``Renderer(backend=)`` does: ``"cuda"`` (the hand-written kernels; the
+    default) or ``"xla"`` (``ops.raster_xla``); the JAX class's default is
+    ``"xla"``.
 
     On the card each ``render_batch`` replays this rank's block from a CUDA
-    graph of key ("exact", W, H, B), captured at the key's first call
-    (``graphs``, as ``Renderer`` keeps them), and gathers the blocks eagerly
-    after the replay on the current stream. On the CPU every call runs
-    eagerly."""
+    graph of key ("exact", W, H, B), captured with the renderer's backend
+    at the key's first call (``graphs``, as ``Renderer`` keeps them), and
+    gathers the blocks eagerly after the replay on the current stream. On
+    the CPU every call runs eagerly."""
 
     def __init__(self, scene, config: RenderConfig = DEFAULT_CONFIG,
-                 mesh: Optional[Mesh] = None, device="cuda") -> None:
+                 mesh: Optional[Mesh] = None, device="cuda",
+                 backend: str = "cuda") -> None:
         scene.validate()
+        check_backend(backend)
         self.config = config
+        self.backend = backend
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else make_mesh(device=device)
         if self.mesh.device.type != self.device.type:
@@ -330,7 +389,7 @@ class ShardedRenderer:
         def frame(x):
             return render_batch_sharded(self.dev, x.view(b, 3, 4), width=width,
                                         height=height, config=self.config,
-                                        mesh=self.mesh)
+                                        mesh=self.mesh, backend=self.backend)
         inputs = ms.reshape(-1)
         if self.graphs is None:
             return frame(torch.from_numpy(inputs))

@@ -23,7 +23,11 @@ The shard_map-1dev and tri-sharded rows need a process group: they use the
 initialised default group, or make one of one rank (NCCL on the card, gloo
 on the CPU, an in-process store) and destroy it before ``main`` returns. The
 CPU counterpart of a card run's sharded row is the CPU renderer's frame of
-the same inputs, which a one-rank composite equals bit for bit.
+the same inputs, which a one-rank composite equals bit for bit. The
+tri-sharded-n1-10k row's n1 overhead is the one-rank sharded frame's ms
+over the renderer's frame's: on the card both replay a captured graph (the
+sharded frame's rank range from ``render_scene_sharded``'s graph cache), as
+the TPU tool compares two compiled frames.
 """
 
 from __future__ import annotations
@@ -459,7 +463,9 @@ def route_tracked(ctx: Context, case: Case, device) -> Result:
 def route_scene_sharded(ctx: Context, case: Case, device) -> Result:
     """``render_scene_sharded`` on the one-rank mesh against the captured
     ``render_device``, bit for bit, and its time against the captured
-    frame's (the TPU tool's n1 overhead)."""
+    frame's (the TPU tool's n1 overhead). On the card the sharded frame
+    replays its rank's range from the function's graph cache: the row
+    checks that the first call captured and the timed calls replayed."""
     r = ctx.renderer(case, device)
     m = ctx.pose(case.pose)
     w, h = case.size
@@ -468,6 +474,8 @@ def route_scene_sharded(ctx: Context, case: Case, device) -> Result:
         return Result([(m, *want)])
     mt = torch.as_tensor(m, device=device)
     mesh = ctx.mesh()
+    cache = render_scene_sharded.graphs
+    captures = cache.captures
 
     def sharded():
         return render_scene_sharded(r.dev, mt, width=w, height=h,
@@ -476,9 +484,14 @@ def route_scene_sharded(ctx: Context, case: Case, device) -> Result:
     t_plain = ctx.ms(lambda: r.render_device(m, w, h))
     t_shard = ctx.ms(sharded)
     clock = "CUDA events" if ctx.device.type == "cuda" else "host clock"
-    return Result([(m, *got)], [(case.equal, got, want)],
-                  f"n1-overhead {t_shard / max(t_plain, 1e-9):.2f}x "
-                  f"({t_plain:.3f} -> {t_shard:.3f} ms, {clock})")
+    note = (f"n1-overhead {t_shard / max(t_plain, 1e-9):.2f}x "
+            f"({t_plain:.3f} -> {t_shard:.3f} ms, {clock})")
+    checks = []
+    if device.type == "cuda":
+        note += f"; replayed, {cache.captures - captures} capture"
+        checks = [("one capture, then replays",
+                   cache.captures - captures == 1)]
+    return Result([(m, *got)], [(case.equal, got, want)], note, checks)
 
 
 ROUTES: Dict[str, Callable[..., Result]] = {

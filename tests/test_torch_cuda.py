@@ -13,7 +13,11 @@ their ownership, counters and failed captures; the probes of
 app's flight and the ``"xla"`` backend on the card against the CPU; and
 ``ShardedRenderer.render_batch`` replayed from its graph (on an NCCL world
 of one rank, and each block of an emulated 2 x 4 grid) against its eager
-block.
+block; ``render_scene_sharded`` replayed from its graph cache (on an NCCL
+world of one rank, and each rank's range of emulated meshes) against
+``render_device`` and its eager range; ``ShardedRenderer(backend="xla")``
+against ``Renderer(backend="xla")``; and ``entry.dryrun_multichip`` on
+every card.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -773,3 +777,107 @@ def test_grid_blocks_replay_equal_eager_blocks_on_cuda(name):
             assert_equal_on_card(got, want)
         assert tuple(got[0].shape) == (4 // GRID[0], H // GRID[1], W)
         assert sr.graphs.captures == 1 and sr.graphs.replays == 2
+
+
+@pytest.mark.cuda
+def test_scene_sharded_replays_on_cuda():
+    """render_scene_sharded on an NCCL world of one rank replays its rank's
+    range from one graph per key (one capture, then replays), each call
+    bit-equal to render_device and to the eager range, a result held from
+    the first call unchanged after the later ones, on the flat route
+    (default) and the segmented one (stress_scene(objects=128)); and
+    ShardedRenderer(backend="xla") replays bit-equal to
+    Renderer(backend="xla").render_batch."""
+    import torch.distributed as dist
+    from swift3drenderer_tpu_torch.parallel import (
+        ShardedRenderer, make_mesh, render_scene_sharded, sharding)
+
+    need_card()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    cache = render_scene_sharded.graphs
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        poses = flight(3)
+        for name, kw in (("default", {}), ("stress", dict(objects=128))):
+            r = port.Renderer(SCENES[name](seed=0, **kw), device="cuda")
+            captures, replays = cache.captures, cache.replays
+            held = []
+            for m in poses:
+                mt = torch.as_tensor(m, device="cuda")
+                got = render_scene_sharded(r.dev, mt, width=W, height=H,
+                                           mesh=mesh)
+                held.append((got, m))
+                assert_equal_on_card(got, r.render_device(m, W, H))
+                ref = sharding._scene_range(
+                    r.dev, mt, width=W, height=H, config=r.config, mesh=mesh,
+                    backend="cuda")
+                assert_equal_on_card(got, ref[:2])
+            assert cache.captures - captures == 1
+            assert cache.replays - replays == len(poses)
+            assert not torch.equal(held[0][0][0], held[-1][0][0])
+            assert_equal_on_card(held[0][0], r.render_device(poses[0], W, H))
+        scene = SCENES["default"](seed=0)
+        sr = ShardedRenderer(scene, mesh=mesh, device="cuda", backend="xla")
+        want = port.Renderer(scene, device="cuda", backend="xla")
+        for i in (0, 4):
+            ms = np.stack(flight(8)[i:i + 4])
+            assert_equal_on_card(sr.render_batch(ms, W, H),
+                                 want.render_batch(ms, W, H))
+        assert sr.graphs.captures == 1 and sr.graphs.replays == 2
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "stress"])
+def test_emulated_scene_ranks_replay_equal_eager_ranges_on_cuda(name):
+    """Each rank's range of emulated 2- and 4-rank meshes (a Mesh of one
+    rank that holds no group), replayed from render_scene_sharded's graph
+    cache, equals its eager render_range bit for bit; merged, the replays
+    give the single frame."""
+    from swift3drenderer_tpu_torch.parallel import (
+        Mesh, merge_depth_gid, render_scene_sharded, sharding)
+    from swift3drenderer_tpu_torch.renderer import render_range
+
+    need_card()
+    kw = dict(objects=128) if name == "stress" else {}
+    r = port.Renderer(SCENES[name](seed=0, **kw), device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    m = flight(2)[1]
+    mt = torch.as_tensor(m, device=dev)
+    t = r.dev["vert_c"].shape[0]
+    cache = render_scene_sharded.graphs
+    for n in (2, 4):
+        acc = None
+        for rank in range(n):
+            mesh = Mesh(1, n, rank, dev, None, None, None)
+            local = -(-t // n)
+            want = render_range(r.dev, mt, lo=rank * local, count=local,
+                                width=W, height=H, config=r.config)
+            captures = cache.captures
+            for _ in range(2):
+                packed, graphed = sharding._packed_range(
+                    r.dev, mt, width=W, height=H, config=r.config,
+                    mesh=mesh, backend="cuda")
+                assert graphed
+                assert_equal_on_card(sharding._unpack(packed), want)
+            assert cache.captures - captures == 1
+            got = tuple(p.clone() for p in sharding._unpack(packed))
+            acc = got if acc is None else merge_depth_gid(*acc, *got)
+        assert_equal_on_card(acc[:2], r.render_device(m, W, H))
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_cuda():
+    """dryrun_multichip on every card of the machine (one NCCL rank a card,
+    spawned): both backends' batches and composites bit-equal to the
+    single-device frames on each rank."""
+    from swift3drenderer_tpu_torch.entry import dryrun_multichip
+
+    need_card()
+    n = torch.cuda.device_count()
+    out = dryrun_multichip(n)
+    assert len(out["launches"]) == n and out["device"] == "cuda"
+    assert all(sum(x.values()) > 0 for x in out["launches"])

@@ -118,6 +118,10 @@ def _rank_main(rank, store_path, out_dir):
         out["xla_block_pix"], out["xla_block_depth"] = pix.numpy(), depth.numpy()
         pix, depth = sr.render_batch(ms, W, H)
         out["batch_pix"], out["batch_depth"] = pix.numpy(), depth.numpy()
+        pix, depth = ShardedRenderer(SCENES["default"](seed=0), mesh=grid,
+                                     device="cpu", backend="xla").render_batch(
+                                         ms, W, H)
+        out["xla_batch_pix"], out["xla_batch_depth"] = pix.numpy(), depth.numpy()
     finally:
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
         dist.destroy_process_group()
@@ -171,7 +175,9 @@ def test_xla_backend_sharded_equals_single_xla_frames(ranks):
     and the composite (all_gather merge on 6 ranks, butterfly on the 2 x 4
     grid) equals the single render_frame_xla frame on every rank of the
     mesh, bit for bit. render_batch_sharded on the 2 x 4 grid: rank (f, b)
-    holds its block of Renderer(backend="xla").render_batch's batch."""
+    holds its block of Renderer(backend="xla").render_batch's batch, and
+    ShardedRenderer(backend="xla").render_batch gives every rank the whole
+    batch."""
     from swift3drenderer_tpu_torch.renderer import render_frame_xla
 
     pix, depth = (t.numpy() for t in render_frame_xla(
@@ -195,6 +201,8 @@ def test_xla_backend_sharded_equals_single_xla_frames(ranks):
         np.testing.assert_array_equal(
             ranks[r]["xla_block_depth"],
             depth[f * lb:(f + 1) * lb, b * lh:(b + 1) * lh])
+        np.testing.assert_array_equal(ranks[r]["xla_batch_pix"], pix)
+        np.testing.assert_array_equal(ranks[r]["xla_batch_depth"], depth)
 
 
 def test_scene_sharded_matches_jax_render_scene_sharded(ranks):
@@ -264,3 +272,16 @@ def test_batch_sharded_rejects_indivisible_shapes():
     outside = Mesh(1, 2, 5, torch.device("cpu"), None, None, None)
     with pytest.raises(ValueError, match="not in the"):
         render_scene_sharded(dev, ms[0], width=W, height=H, mesh=outside)
+
+
+def test_sharded_renderer_rejects_an_unknown_backend():
+    """ShardedRenderer(backend=) takes the port's backends, "cuda" and
+    "xla", and raises on any other (the JAX package's "pallas" included)
+    before it uploads the scene."""
+    mesh = Mesh(1, 1, 0, torch.device("cpu"), None, None, None)
+    with pytest.raises(ValueError, match="unknown backend"):
+        ShardedRenderer(SCENES["default"](seed=0), mesh=mesh, device="cpu",
+                        backend="pallas")
+    sr = ShardedRenderer(SCENES["default"](seed=0), mesh=mesh, device="cpu",
+                         backend="xla")
+    assert sr.backend == "xla" and sr.graphs is None
