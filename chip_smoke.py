@@ -98,9 +98,19 @@ Phases; any failed check raises and the script exits non-zero:
      and read just after (every mode checked against the tool's oracle and
      timed at the tool's full ITERS); every mode's kernel against its plain
      version on the card, bit for bit, at 1, 3, 64, 130 iterations and the
-     full ITERS, and the dynamic grid at nc = 0-4 with nc in device memory;
+     full ITERS (probe_gather2d and fetch_microbench, whose iterations run
+     in chunks, also at 0 and across their chunk length, each call one
+     launch), and the dynamic grid at nc = 0-4 with nc in device memory;
      torch.profiler shows the dynamic-grid call makes no device-to-host copy;
-     `cuobjdump -sass` counts each instance's global loads inside its loop;
+     `cuobjdump -sass` counts each instance's global and shared loads
+     inside its loops; each mode of the chunked probes fails if its time
+     falls under its bound or its main loop holds fewer loads than an
+     iteration's times the iterations it covers (global loads through L1,
+     shared loads in the staged gather: work dropped), and its printed line
+     gives the floors of its L1 and shared-memory wavefronts and warp loads
+     at one an SM a cycle (worked out, not measured, so kept out of the
+     kernels line); with --parent DIR each of their modes is timed against
+     the parent tree's in turns parent, this, this, parent;
   8. the captured frames (run after phase 5, before the profiles of phase
      6, which would inflate its host times): every phase 5 cell's replayed
      flight bit-equal to its eager flight (both routes and samplings,
@@ -458,22 +468,23 @@ def segmented_bound(raster, binned, trf, tri, rec, textures, width, height,
             "broadband_slots": wide}
 
 
-def load_parent_raster(parent: str):
-    """``ops.raster`` of the port in another checkout (the parent commit's),
-    imported as package ``s3d_parent``: its kernels build from its own
-    csrc/ into its own _build/."""
+def load_parent(parent: str, name: str = "ops.raster"):
+    """Module ``name`` (by default ``ops.raster``) of the port in another
+    checkout (the parent commit's), imported as package ``s3d_parent``: its
+    kernels build from its own csrc/ into its own _build/."""
     import importlib
     import importlib.util
     import os
 
-    pkg = os.path.join(os.path.abspath(parent), "swift3drenderer_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "s3d_parent", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules["s3d_parent"] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module("s3d_parent.ops.raster")
+    if "s3d_parent" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(parent), "swift3drenderer_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "s3d_parent", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["s3d_parent"] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(f"s3d_parent.{name}")
 
 
 # The phase split of the segmented kernels: stress 840 at both sizes and
@@ -657,18 +668,22 @@ PROBE_ITERS = (1, 3, 64, 130)   # small counts, beside each tool's full ITERS
 PROBE_MIXES = (0, 127)
 PROBE_CHUNKS = (0, 1, 2, 3, 4)
 DYNAMIC_CALLS = 20
-PROBE_FAMILIES = {"probe_gather2d": "probe_gather2d_kernel",
-                  "probe_packed_fetch": "probe_packed_fetch_kernel",
-                  "fetch_microbench": "fetch_microbench_kernel",
-                  "probe_dynamic_grid": "probe_dynamic_grid_kernel"}
+CHUNKED = ("probe_gather2d", "fetch_microbench")   # redesigned, PR 12
+PROBE_AB_REPS = 5
+CHUNK_KEYS = ("this_ms_ab", "parent_ms", "speedup_vs_parent")
+PROBE_FAMILIES = {"probe_gather2d": ("probe_gather2d_kernel",
+                                     "probe_gather2d_staged_kernel"),
+                  "probe_packed_fetch": ("probe_packed_fetch_kernel",),
+                  "fetch_microbench": ("fetch_microbench_kernel",),
+                  "probe_dynamic_grid": ("probe_dynamic_grid_kernel",)}
 
 
 def sass_loops(path: str) -> dict:
     """From ``cuobjdump -sass`` of a built library, for each kernel (by its
     mangled name): the instructions inside its loops (from a backward
-    branch's target to the branch), the global loads (LDG) among them, and
-    its global loads in all. {"error": ...} if cuobjdump is missing or
-    fails."""
+    branch's target to the branch), the global loads (LDG) among them, its
+    global loads in all, and the most global and shared (LDS) loads any one
+    loop holds. {"error": ...} if cuobjdump is missing or fails."""
     import os
     import re
     import shutil
@@ -699,7 +714,7 @@ def sass_loops(path: str) -> dict:
             if ins:
                 instrs.append((int(ins.group(1), 16), ins.group(2)))
         at = {addr: i for i, (addr, _) in enumerate(instrs)}
-        in_loop = set()
+        loops = []
         for i, (_, text) in enumerate(instrs):
             branch = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
             if not branch:
@@ -708,34 +723,113 @@ def sass_loops(path: str) -> dict:
             j = (labels.get(target) if target.startswith(".L")
                  else at.get(int(target, 16)))
             if j is not None and j <= i:
-                in_loop.update(range(j, i + 1))
-        loads = [i for i, (_, text) in enumerate(instrs)
-                 if opcode(text).startswith("LDG")]
+                loops.append(range(j, i + 1))
+        in_loop = set().union(*loops)
+        loads = {kind: [i for i, (_, text) in enumerate(instrs)
+                        if opcode(text).startswith(kind)]
+                 for kind in ("LDG", "LDS")}
         out[name] = {"loop_instructions": len(in_loop),
-                     "global_loads_in_loops": sum(i in in_loop for i in loads),
-                     "global_loads": len(loads)}
+                     "global_loads_in_loops": sum(i in in_loop
+                                                  for i in loads["LDG"]),
+                     "global_loads": len(loads["LDG"]),
+                     "most_global_loads_a_loop": max(
+                         (sum(i in r for i in loads["LDG"]) for r in loops),
+                         default=0),
+                     "most_shared_loads_a_loop": max(
+                         (sum(i in r for i in loads["LDS"]) for r in loops),
+                         default=0)}
     return out
 
 
 def probe_sass(sass: dict, probe: str, mode_index: int | None) -> dict:
     """The sass_loops entry of one probe kernel instance (its template
-    argument is the mode's index), or "not measured"."""
+    argument is the mode's index) with its mangled name under "kernel", or
+    "not measured"."""
     import re
     for name, entry in sass.items():
-        if PROBE_FAMILIES[probe] not in name:
+        if not any(family in name for family in PROBE_FAMILIES[probe]):
             continue
         arg = re.search(r"ILi(\d+)E", name)
         if mode_index is None or (arg and int(arg.group(1)) == mode_index):
-            return entry
+            return {"kernel": name, **entry}
     return {"error": sass.get("error", "not measured: instance not found")}
 
 
-def probes_phase(torch) -> list:
+def max_sm_clock_hz():
+    """The card's highest SM clock (``nvidia-smi``), or None if unread."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(smi.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        return None
+
+
+def chunked_checks(entry: dict, name: str, module, mode: str, args: tuple,
+                   ab: dict, sms: int, clock_hz) -> dict:
+    """Check one mode of a chunked probe and add its A/B against the parent
+    tree's. Its time may not fall under its bound, nor the main loop of its
+    kernel hold fewer loads than an iteration's times the iterations it
+    covers: UNROLL iterations through L1 (global loads), or, in the staged
+    gather, STAGED_PIXELS pixels a thread times a stage's iterations from
+    shared memory; either would mean work was dropped. Returns the mode's
+    floors, worked out from its inputs and not measured (for the printed
+    line only): at the highest SM clock and one wavefront an SM a cycle, an
+    iteration's L1 wavefronts (a 128-byte line a warp's load touches), for
+    probe_gather2d its shared-memory wavefronts (a warp's load's bank
+    conflicts, if staged), and its warp-wide loads (L1's and shared
+    memory's 128 bytes a cycle)."""
+    from swift3drenderer_tpu_torch.tools import _probe
+
+    atlas, ln, iters = args[1], args[3], args[-1]
+    if name == "probe_gather2d":
+        words = module.load_words(mode, args[2], ln)
+    else:
+        words = module.load_words(mode, ln)
+    loads = len(words)
+    cycles_ms = iters / (sms * clock_hz) * 1e3 if clock_hz else None
+    counts = {"l1": sum(map(_probe.distinct_lines, words))}
+    if name == "probe_gather2d":   # whose modes may stage their blocks
+        counts["smem"] = sum(map(_probe.bank_wavefronts, words))
+    floors = {}
+    for key, count in counts.items():
+        floors[f"{key}_wavefronts_per_iter"] = count
+        floors[f"{key}_wavefront_ms"] = (count * cycles_ms if cycles_ms
+                                         else "not measured")
+    floors["load_issue_ms"] = (loads * ln.numel() // 32 * cycles_ms
+                               if cycles_ms else "not measured")
+    sass = entry["sass"]
+    check("error" not in sass, f"{name} {mode}: no SASS ({sass})")
+    if "staged" in sass["kernel"]:
+        group = module.STAGE_BYTES // (atlas.numel() * 4 // module.NBLK)
+        need, kind = loads * module.STAGED_PIXELS * group, "shared"
+    else:
+        need, kind = loads * _probe.UNROLL, "global"
+    check(sass[f"most_{kind}_loads_a_loop"] >= need,
+          f"{name} {mode}: its main loop holds fewer than {need} {kind} "
+          f"loads, {loads} an iteration times the iterations it covers "
+          f"({sass})")
+    times = [entry["ms"]]
+    if (name, mode) in ab:
+        entry["this_ms_ab"] = ab[name, mode]["this"]
+        entry["parent_ms"] = ab[name, mode]["parent"]
+        entry["speedup_vs_parent"] = entry["parent_ms"] / entry["this_ms_ab"]
+        times.append(entry["this_ms_ab"])
+    check(min(times) >= entry["bound_ms"],
+          f"{name} {mode}: {min(times)} ms is under its bound "
+          f"{entry['bound_ms']} ms")
+    return floors
+
+
+def probes_phase(torch, parent: str | None = None) -> list:
     """Phase 7: the probes' entry points, their kernels against the plain
-    versions, the dynamic grid's copy check, and one kernels-line row each."""
+    versions, the dynamic grid's copy check, the chunked probes' checks that
+    no work was dropped and their A/B against the parent tree's, and one
+    kernels-line row each."""
     from swift3drenderer_tpu_torch import kernels
     from swift3drenderer_tpu_torch.tools import (
-        fetch_microbench, probe_dynamic_grid, probe_gather2d,
+        _probe, fetch_microbench, probe_dynamic_grid, probe_gather2d,
         probe_packed_fetch)
 
     modules = {"probe_gather2d": probe_gather2d,
@@ -777,6 +871,12 @@ def probes_phase(torch) -> list:
     counts_of = {name: PROBE_ITERS + (modules[name].ITERS,)
                  for name in ("probe_gather2d", "probe_packed_fetch",
                               "fetch_microbench")}
+    # The probes whose iterations run in chunks on the whole card: also no
+    # iteration, and one chunk and two (the last of one iteration) at the
+    # chunk length of small counts.
+    for name in CHUNKED:
+        counts_of[name] = (0,) + counts_of[name] + (_probe.MIN_CHUNK,
+                                                    _probe.MIN_CHUNK + 1)
     cases = {
         "probe_gather2d": [(m, *g2[m], n) for m in probe_gather2d.MODES
                            for n in counts_of["probe_gather2d"]],
@@ -791,7 +891,11 @@ def probes_phase(torch) -> list:
     for name, args_list in cases.items():
         errs[name] = 0
         for args in args_list:
+            before = wrappers[name].launches
             got, want = wrappers[name](*args), plains[name](*args)
+            check(name not in CHUNKED or wrappers[name].launches == before + 1,
+                  f"{name} {args[0]} at {args[-1]} iterations: "
+                  f"{wrappers[name].launches - before} launches, not 1")
             err = (got.double() - want.double()).abs().max().item()
             what = [a if isinstance(a, (str, int)) else tuple(a.shape) for a in args]
             check(torch.equal(got, want), f"{name} {what}: kernel and plain "
@@ -809,7 +913,7 @@ def probes_phase(torch) -> list:
         prof = device_busy(torch, lambda: [probe_dynamic_grid.probe_dynamic_grid(
             *args) for _ in range(DYNAMIC_CALLS)])
         us = sum(v for k, v in prof["per_kernel"].items()
-                 if PROBE_FAMILIES["probe_dynamic_grid"] in k)
+                 if PROBE_FAMILIES["probe_dynamic_grid"][0] in k)
         device_ms[n] = us / DYNAMIC_CALLS / 1e3 if us else "not measured"
         print(f"profile probe_dynamic_grid nc={n}: {device_ms[n]} ms of device "
               f"time per launch, device-to-host copies {prof['d2h']}, scalar "
@@ -829,7 +933,29 @@ def probes_phase(torch) -> list:
     main_mode = {"probe_gather2d": "base8", "probe_packed_fetch": "gather8",
                  "fetch_microbench": "full",
                  "probe_dynamic_grid": f"nc={probe_dynamic_grid.NCMAX}"}
-    rows = []
+    # The chunked probes against the parent tree's, each mode at the tool's
+    # full count, in turns parent, this, this, parent.
+    ab = {}
+    if parent:
+        for name in CHUNKED:
+            trees = {"this": wrappers[name],
+                     "parent": getattr(load_parent(parent, f"tools.{name}"),
+                                       name)}
+            for mode, args in full[name].items():
+                spans = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent"):
+                    spans[who].append(time_ms(
+                        torch, lambda: trees[who](*args), reps=PROBE_AB_REPS,
+                        warmup=1, windows=1))
+                ab[name, mode] = {who: statistics.median(v)
+                                  for who, v in spans.items()}
+                print(f"probe A/B vs parent: {name} {mode} "
+                      f"{json.dumps(ab[name, mode])}", flush=True)
+
+    clock_hz = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"probes: {sms} SMs, highest SM clock {clock_hz} Hz", flush=True)
+    rows, floors = [], {}
     for name, module in modules.items():
         modes = []
         for mode, res in results[name].items():
@@ -848,6 +974,9 @@ def probes_phase(torch) -> list:
                 entry["sass"] = probe_sass(sass, name, module.MODES.index(mode))
             else:
                 entry["sass"] = probe_sass(sass, name, None)
+            if name in CHUNKED:
+                floors[name, mode] = chunked_checks(entry, name, module, mode,
+                                                    args, ab, sms, clock_hz)
             modes.append(entry)
         main = next(e for e in modes if e["mode"] == main_mode[name])
         rows.append({
@@ -862,12 +991,20 @@ def probes_phase(torch) -> list:
             "bound_note": "int32 lane ops counted at the fp32 lane rate "
                           "(an optimistic peak)",
             "library_ms": None, "modes": modes})
+        if name in CHUNKED:
+            rows[-1]["parent_ms_same_call"] = main.get("parent_ms",
+                                                       "not measured")
         for e in modes:
             print(f"probe {name} {e['mode']}: {e['ms']} ms, ns/iter "
                   f"{e.get('ns_per_iter', '-')} (net "
                   f"{e.get('net_ns_per_iter', '-')}), plain {e['plain_ms']} ms, "
                   f"bound {e['bound_ms']} ms ({e['bound_by']}), launches "
-                  f"{e['launches']}, sass {json.dumps(e['sass'])}", flush=True)
+                  f"{e['launches']}, sass {json.dumps(e['sass'])}"
+                  + "".join(f", {k} {e[k]}" for k in CHUNK_KEYS if k in e)
+                  + (f", floors worked out, not measured "
+                     f"{json.dumps(floors[name, e['mode']])}"
+                     if (name, e["mode"]) in floors else ""),
+                  flush=True)
     return rows
 
 
@@ -2320,7 +2457,7 @@ def run(parent: str | None = None) -> dict:
     ab, frame_ab = [], []
     trees = {"this": raster}
     if parent:
-        trees["parent"] = load_parent_raster(parent)
+        trees["parent"] = load_parent(parent)
         # (name, route, sampling, width, height, G, B, y0, rows)
         ab_cases = [("default", "flat", sampling, w, h, None, 1, 0, h)
                     for sampling in ("nearest", "bilinear")
@@ -2996,7 +3133,7 @@ def run(parent: str | None = None) -> dict:
         }
 
     phase("7. probes")
-    probe_rows = probes_phase(torch)
+    probe_rows = probes_phase(torch, parent)
 
     ids_source = "swift3drenderer_tpu/ops/raster_pallas.py:398"
     kernels_line = [

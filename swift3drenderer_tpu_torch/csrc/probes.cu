@@ -4,27 +4,37 @@
 // tools/ (the TPU kernels below); swift3drenderer_tpu_torch/tools/ holds
 // their wrappers, plain PyTorch versions and entry points.
 //
-// Launch shape. A probe's shape is its definition, so each keeps the TPU
-// probe's: one thread per element of its (16, 128) or (32, 128) int32 output
-// (one 128-thread block per row), each thread running the probe's whole
-// `iters` loop, in order, with `#pragma unroll 1` as the TPU's fori_loop (no
-// unroll). So 16 or 32 of the card's 132 SMs hold one block of four warps
-// each, and every iteration waits on its own loads: a probe measures the
-// latency of one iteration's pattern, and stays far above a bound that counts
-// its work (the bytes, or its lane operations at the card's fp32 lane rate).
+// Launch shape. probe_gather2d and fetch_microbench fold their iteration
+// axis with XOR or OR, which on int32 are exact, associative and commutative,
+// so the axis is cut into contiguous chunks of the global counter that run on
+// blocks of their own: the grid is (row groups) x (chunks), the chunk count
+// chosen by the Python wrapper (tools/_probe.py, chunk_plan) to give the card
+// several waves of resident blocks. A thread folds its pixels' iterations of
+// the chunk into partials, and the partials meet in the output with one
+// integer atomic a pixel, on an output the entry point zeroes first
+// (cudaMemsetAsync): the same bits in any order, one launch a call, nothing
+// read on the host. A probe then prices its pattern with the whole card busy
+// (L1 or shared-memory wavefronts, bulk copies or int32 issue, by mode), not
+// one warp's latency. probe_packed_fetch and probe_dynamic_grid keep the TPU
+// probe's shape: one block per output row running the whole loop with
+// `#pragma unroll 1`, so they measure one iteration's latency and stay far
+// above a bound that counts their work (the bytes, or their lane operations
+// at the card's fp32 lane rate).
 //
 // Each mode is a template instance and keeps its own access pattern as the
-// card sees it: the loads are __ldg (ld.global.nc), which the compiler may
-// hoist out of the loop where their address does not depend on the loop
-// counter but does not merge across a select. Where a body does not depend on
-// the counter, nvcc may simplify the loop, as Mosaic could;
-// chip_smoke.py counts each instance's loads inside its loop from
-// `cuobjdump -sass`.
+// card sees it: the same loads, at the same lanes and rows, from global
+// memory through L1 (__ldg, ld.global.nc) or from a copy of the block in
+// shared memory. Where a body does not depend on the counter, nvcc may
+// simplify the loop, as Mosaic could; chip_smoke.py counts each instance's
+// loads in its main loop from `cuobjdump -sass` and fails a redesigned mode
+// whose loop holds fewer than its loads an iteration times the iterations
+// (or pixels) a step covers, or whose time falls under its bound.
 //
 // Built with the raster kernels' flags (kernels/__init__.py): sm_90a,
 // --fmad=false. Integer arithmetic is exact, so every kernel equals its plain
 // version bit for bit; the chunk loop's float sums are of small integers.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -43,47 +53,223 @@ __device__ __forceinline__ int select_tree(const int g[8], int r) {
   return b2 ? s11 : s10;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Hopper's mbarrier and 1-D bulk copy (the counterparts of Mosaic's DMA
+// semaphores and async copies), for the staged gather below.
+__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of ``bar`` with this parity has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n\t.reg .pred done;\n"
+      "WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
+      "@!done bra WAIT;\n}"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16, both ends 16-byte aligned) from global
+// to shared memory; the copy's completion completes the phase of ``bar``.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The chunk loop of the redesigned probes' L1 path (fetch_microbench,
+// probe_gather2d's sub8). A block of the grid (rows, chunks) folds
+// iterations [lo, lo + n) of the global counter, n = min(chunk, iters - lo)
+// (0 in the one block of an empty call), with op over body(it): kUnroll
+// iterations a step into kUnroll accumulators, so their loads are in
+// flight together, then the ragged rest. The step loop stays
+// rolled (`#pragma unroll 1`): kUnroll < 64 iterations a step visit kUnroll
+// distinct atlas blocks, so no two loads of a step share an address and
+// nvcc cannot merge them (an XOR of a load with itself would cancel both).
+constexpr int kUnroll = 4;   // tools/_probe.py UNROLL
+
+template <class Body, class Op>
+__device__ __forceinline__ int fold_chunk(int iters, int chunk, Body body,
+                                          Op op) {
+  const int lo = blockIdx.y * chunk;   // (chunks - 1) * chunk < iters
+  const int hi = lo + max(0, min(chunk, iters - lo));
+  int acc[kUnroll] = {};
+  int it = lo;
+#pragma unroll 1
+  for (; hi - it >= kUnroll; it += kUnroll) {
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) acc[j] = op(acc[j], body(it + j));
+  }
+#pragma unroll 1
+  for (; it < hi; ++it) acc[0] = op(acc[0], body(it));
+#pragma unroll
+  for (int j = 1; j < kUnroll; ++j) acc[0] = op(acc[0], acc[j]);
+  return acc[0];
+}
+
 // ---------------------------------------------------------------------------
 // probe_gather2d: replaces tools/probe_gather2d.py::build (:123,
 // pl.pallas_call :124), kernel make_kernel (:40). For it in [0, iters), with
 // b = it % 64, XOR-accumulate one texel per pixel out of atlas block b.
-// Bound: lane operations (the 256 KB-1 MB atlas is read in L1/L2), ~10-30 a
-// pixel-iteration.
+// The design: the iterations spread over the whole card, the partials XORed
+// into the zeroed output with atomicXor. Each mode reads its blocks the way
+// that measured faster on the H100 (tools/probe_variants.py):
+// - base8, ta1024, take1024, ta4096 stage them in shared memory
+//   (probe_gather2d_staged_kernel): one bulk copy of a block serves a
+//   16-row strip, and a warp's scattered load costs its bank conflicts, ~3
+//   wavefronts (base8 ~22 an iteration over eight loads), where through L1
+//   it costs ~4-29 lines (base8, ta1024) or, for ta4096's 1 MB atlas, misses
+//   to L2. Bound: shared-memory wavefronts; ta4096 the copies from L2.
+// - sub8 reads through L1 (probe_gather2d_kernel): its load is one row of
+//   its own lanes, conflict-free in shared memory, so staging costs more in
+//   copies and barriers than it saves. Bound: L1 wavefronts.
+// The table's bound (lane operations at the fp32 rate) is below all of them.
 
 enum Gather2dMode { kBase8 = 0, kSub8 = 1, kTa1024 = 2, kTake1024 = 3,
                     kTa4096 = 4 };
 
+// Words of one atlas block: 8 rows of 128 lanes, or of 512 for ta4096.
+template <int kMode>
+constexpr int kBlockWords = kMode == kTa4096 ? 4096 : 1024;
+
+// Which modes stage the blocks their iterations visit in shared memory
+// (bit m for mode m); the others read them through L1 (__ldg).
+constexpr unsigned kStagedGather2d = 0x1D;   // all but sub8
+
+// One iteration: the texel the pixel takes from the atlas block at ``blk``
+// (block it % 64), each word read with ``load``.
+template <int kMode, class Load>
+__device__ __forceinline__ int gather2d_texel(const int* blk, int rel, int ln,
+                                              int lane, Load load) {
+  if constexpr (kMode == kBase8) {
+    // eight row loads at the pixel's lane, then the tree.
+    int g[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) g[r] = load(blk + r * kLanes + ln);
+    return select_tree(g, rel);
+  } else if constexpr (kMode == kSub8) {
+    return load(blk + rel * kLanes + lane);   // (rel, own lane)
+  } else if constexpr (kMode == kTa1024 || kMode == kTake1024) {
+    return load(blk + ((rel << 7) | ln));     // the block flattened
+  } else {
+    return load(blk + ((rel << 9) | ln));     // four lane chunks a row
+  }
+}
+
+// Through L1: a block of 128 threads, one pixel of one row each.
 template <int kMode>
 __global__ void __launch_bounds__(kLanes) probe_gather2d_kernel(
     const int* __restrict__ atlas, const int* __restrict__ rel_in,
-    const int* __restrict__ ln_in, int* __restrict__ out, int iters) {
+    const int* __restrict__ ln_in, int* __restrict__ out, int iters,
+    int chunk) {
   const int lane = threadIdx.x;
   const int i = blockIdx.x * kLanes + lane;
   const int rel = rel_in[i];   // [0, 8)
   const int ln = ln_in[i];     // [0, 128), or [0, 512) for ta4096
-  int acc = 0;
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    const int b = it & (kBlocks - 1);   // it % 64, it >= 0
-    if constexpr (kMode == kBase8) {
-      // atlas (512, 128): eight row loads at the pixel's lane, then the tree.
-      const int* blk = atlas + b * 8 * kLanes;
-      int g[8];
+  const int part = fold_chunk(
+      iters, chunk,
+      [=](int it) {
+        return gather2d_texel<kMode>(
+            atlas + (it & (kBlocks - 1)) * kBlockWords<kMode>, rel, ln, lane,
+            [](const int* p) { return __ldg(p); });
+      },
+      [](int a, int v) { return a ^ v; });
+  atomicXor(out + i, part);
+}
+
+// Staged: a block of kStagedThreads threads covers a 16-row strip, kPixels
+// pixels a thread (rows y and y + 8). Thread 0 keeps a ring of kStages
+// stages in shared memory, each the blocks of kStageBytes / (block bytes)
+// consecutive iterations (4 blocks of 4 KB, or 1 of 16 KB: contiguous, as a
+// chunk starts on a multiple of 4), copied by one cp.async.bulk; each warp
+// reads a stage with the mode's pattern and frees it when done. One copy of
+// a block serves 2,048 pixels, against an L1 line a warp's load; a stage of
+// several iterations pays the barriers once for all of them.
+// kPixels and kStageBytes are tools/probe_gather2d.py's STAGED_PIXELS and
+// STAGE_BYTES, from which chip_smoke.py counts the loads a stage must hold.
+constexpr int kStagedThreads = 1024;
+constexpr int kPixels = 2;
+constexpr int kStagedRows = kPixels * kStagedThreads / kLanes;
+constexpr int kStageBytes = 16 * 1024;
+constexpr int kStages = 4;
+constexpr int kRingBytes = kStages * kStageBytes;
+
+template <int kMode>
+__global__ void __launch_bounds__(kStagedThreads) probe_gather2d_staged_kernel(
+    const int* __restrict__ atlas, const int* __restrict__ rel_in,
+    const int* __restrict__ ln_in, int* __restrict__ out, int iters,
+    int chunk) {
+  constexpr int kWords = kBlockWords<kMode>;
+  constexpr int kGroup = kStageBytes / (kWords * 4);   // iterations a stage
+  extern __shared__ __align__(128) int ring[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const int t = threadIdx.x, lane = t & (kLanes - 1);
+  const int i = blockIdx.x * kStagedRows * kLanes + t;
+  int rel[kPixels], ln[kPixels], acc[kPixels] = {};
 #pragma unroll
-      for (int r = 0; r < 8; ++r) g[r] = __ldg(blk + r * kLanes + ln);
-      acc ^= select_tree(g, rel);
-    } else if constexpr (kMode == kSub8) {
-      // atlas (512, 128): one load at (rel, own lane).
-      acc ^= __ldg(atlas + (b * 8 + rel) * kLanes + lane);
-    } else if constexpr (kMode == kTa1024 || kMode == kTake1024) {
-      // atlas (64, 1024), each block flattened: one load at (rel << 7) | ln.
-      acc ^= __ldg(atlas + b * 1024 + ((rel << 7) | ln));
-    } else {
-      // atlas (64, 4096), four lane chunks a row: one load at (rel << 9) | ln.
-      acc ^= __ldg(atlas + b * 4096 + ((rel << 9) | ln));
+  for (int p = 0; p < kPixels; ++p) {
+    rel[p] = rel_in[i + p * kStagedThreads];
+    ln[p] = ln_in[i + p * kStagedThreads];
+  }
+  const int lo = blockIdx.y * chunk;
+  const int n = max(0, min(chunk, iters - lo));
+  const int stages = (n + kGroup - 1) / kGroup;
+  const auto stage = [&](int g) {   // stage g into slot g % kStages
+    const int m = min(kGroup, n - g * kGroup);
+    bulk_copy(ring + g % kStages * kGroup * kWords,
+              atlas + ((lo + g * kGroup) & (kBlocks - 1)) * kWords,
+              m * kWords * 4, &full[g % kStages]);
+  };
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kStagedThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int g = 0; g < min(stages, kStages); ++g) stage(g);
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int g = 0; g < stages; ++g) {
+    const int s = g % kStages;
+    const uint32_t parity = (g / kStages) & 1;
+    const int m = min(kGroup, n - g * kGroup);
+    bar_wait(&full[s], parity);
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j < m) {
+        const int* blk = ring + (s * kGroup + j) * kWords;
+#pragma unroll
+        for (int p = 0; p < kPixels; ++p)
+          acc[p] ^= gather2d_texel<kMode>(blk, rel[p], ln[p], lane,
+                                          [](const int* q) { return *q; });
+      }
+    }
+    __syncwarp();
+    if ((t & 31) == 0) bar_arrive(&empty[s]);
+    if (t == 0 && g + kStages < stages) {
+      bar_wait(&empty[s], parity);   // every warp is done with slot s
+      stage(g + kStages);
     }
   }
-  out[i] = acc;
+#pragma unroll
+  for (int p = 0; p < kPixels; ++p)
+    atomicXor(out + i + p * kStagedThreads, acc[p]);
 }
 
 // ---------------------------------------------------------------------------
@@ -145,53 +331,66 @@ __global__ void __launch_bounds__(kLanes) probe_packed_fetch_kernel(
 // pl.pallas_call :77), kernel make_kernel (:32). The fetch block loop split
 // into its parts, OR-accumulated over iters: block b % 64 of a (512, 512)
 // atlas is rows (b % 64) * 8 .. + 8 of its first 128 columns, and row r's
-// texel counts where key == b * 8 + r. Bound: lane operations, ~3-45 a
-// pixel-iteration.
+// texel counts where key == b * 8 + r (b the global counter). Bound on this
+// card: int32 issue, the ALU pipe's compares, selects and ORs at half the
+// fp32 lane rate (~20-28 a warp-iteration for full, nogather and noload, a
+// few for loadonly and empty); noselect's eight loads sit near the L1 floor
+// of one wavefront a load (the tool's ln is the pixel's own lane). The
+// design is probe_gather2d's L1 path: the iterations spread over the card
+// by fold_chunk, the partials ORed into the zeroed output with atomicOr.
+// Staging would save nothing: each load already costs one wavefront.
 
 enum MicroMode { kFull = 0, kNoLoad = 1, kNoGather = 2, kNoSelect = 3,
                  kLoadOnly = 4, kMicroEmpty = 5 };
 constexpr int kMicroAtlasW = 512;
 
+// One iteration b: the mode's part of the fetch body over block b % 64.
+template <int kMode>
+__device__ __forceinline__ int fetch_body(const int* __restrict__ atlas,
+                                          int b, int key, int ln, int lane) {
+  if constexpr (kMode == kMicroEmpty) {
+    return b;
+  } else {
+    const int* blk = atlas + (b & (kBlocks - 1)) * 8 * kMicroAtlasW;
+    if constexpr (kMode == kLoadOnly) {
+      return __ldg(blk + lane);   // row 0 at the pixel's own lane
+    } else {
+      int c[8];
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        int g;
+        if constexpr (kMode == kNoLoad) {
+          g = 7;                                      // the constant block
+        } else if constexpr (kMode == kNoGather) {
+          g = __ldg(blk + r * kMicroAtlasW + lane);   // own lane
+        } else {
+          g = __ldg(blk + r * kMicroAtlasW + ln);     // the pixel's lane
+        }
+        if constexpr (kMode == kNoSelect) {
+          c[r] = g;
+        } else {
+          c[r] = key == b * 8 + r ? g : 0;
+        }
+      }
+      return ((c[0] | c[1]) | (c[2] | c[3])) | ((c[4] | c[5]) | (c[6] | c[7]));
+    }
+  }
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kLanes) fetch_microbench_kernel(
     const int* __restrict__ atlas, const int* __restrict__ key_in,
-    const int* __restrict__ ln_in, int* __restrict__ out, int iters) {
+    const int* __restrict__ ln_in, int* __restrict__ out, int iters,
+    int chunk) {
   const int lane = threadIdx.x;
   const int i = blockIdx.x * kLanes + lane;
   const int key = key_in[i];
   const int ln = ln_in[i];
-  int acc = 0;
-#pragma unroll 1
-  for (int b = 0; b < iters; ++b) {
-    if constexpr (kMode == kMicroEmpty) {
-      acc |= b;
-    } else {
-      const int* blk = atlas + (b & (kBlocks - 1)) * 8 * kMicroAtlasW;
-      if constexpr (kMode == kLoadOnly) {
-        acc |= __ldg(blk + lane);   // row 0 at the pixel's own lane
-      } else {
-        int c[8];
-#pragma unroll
-        for (int r = 0; r < 8; ++r) {
-          int g;
-          if constexpr (kMode == kNoLoad) {
-            g = 7;                                   // the constant block
-          } else if constexpr (kMode == kNoGather) {
-            g = __ldg(blk + r * kMicroAtlasW + lane);   // own lane
-          } else {
-            g = __ldg(blk + r * kMicroAtlasW + ln);      // the pixel's lane
-          }
-          if constexpr (kMode == kNoSelect) {
-            c[r] = g;
-          } else {
-            c[r] = key == b * 8 + r ? g : 0;
-          }
-        }
-        acc |= ((c[0] | c[1]) | (c[2] | c[3])) | ((c[4] | c[5]) | (c[6] | c[7]));
-      }
-    }
-  }
-  out[i] = acc;
+  const int part = fold_chunk(
+      iters, chunk,
+      [=](int b) { return fetch_body<kMode>(atlas, b, key, ln, lane); },
+      [](int a, int v) { return a | v; });
+  atomicOr(out + i, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -213,10 +412,6 @@ constexpr int kNT = 3;
 constexpr int kNCMax = 4;
 constexpr int kRowWords = 8 * kLanes;
 constexpr uint32_t kRowBytes = kRowWords * sizeof(int);
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __global__ void __launch_bounds__(kRowWords) probe_dynamic_grid_kernel(
     const float* __restrict__ tab, const int* __restrict__ hbm,
@@ -262,43 +457,87 @@ int status() { return static_cast<int>(cudaGetLastError()); }
 
 int bad_mode() { return static_cast<int>(cudaErrorInvalidValue); }
 
+// The launch of a redesigned probe: zero the (rows, 128) output, then one
+// block per ``rows_a_block`` rows and chunk, at least one chunk (an empty
+// call launches one block a row group that folds nothing), so that every
+// call is one launch.
+using FoldKernel = void (*)(const int*, const int*, const int*, int*, int,
+                           int);
+
+int fold_launch(FoldKernel kernel, const void* atlas, const void* a,
+                const void* b, void* out, int rows, int iters, int chunks,
+                int chunk, void* stream, int rows_a_block = 1,
+                int threads = kLanes, int smem = 0) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows % rows_a_block) return bad_mode();
+  const cudaError_t err =
+      cudaMemsetAsync(out, 0, sizeof(int) * rows * kLanes, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(rows / rows_a_block, chunks > 1 ? chunks : 1), threads, smem,
+           s>>>(static_cast<const int*>(atlas), static_cast<const int*>(a),
+                static_cast<const int*>(b), static_cast<int*>(out), iters,
+                chunk);
+  return status();
+}
+
+// Lift ``kernel``'s dynamic shared-memory limit to ``smem`` bytes on the
+// current card, once a card: ``done`` holds a bit for each card (ids under
+// 64) already set, so later launches make no such host call.
+int allow_smem(FoldKernel kernel, int smem, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return 0;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done.fetch_or(bit, std::memory_order_relaxed);
+  return 0;
+}
+
+template <int kMode>
+int gather2d_launch(const void* atlas, const void* rel, const void* ln,
+                    void* out, int rows, int iters, int chunks, int chunk,
+                    void* stream) {
+  if constexpr ((kStagedGather2d >> kMode) & 1) {
+    static std::atomic<uint64_t> smem_set{0};
+    if (const int err = allow_smem(probe_gather2d_staged_kernel<kMode>,
+                                   kRingBytes, smem_set))
+      return err;
+    return fold_launch(probe_gather2d_staged_kernel<kMode>, atlas, rel, ln,
+                       out, rows, iters, chunks, chunk, stream, kStagedRows,
+                       kStagedThreads, kRingBytes);
+  } else {
+    return fold_launch(probe_gather2d_kernel<kMode>, atlas, rel, ln, out,
+                       rows, iters, chunks, chunk, stream);
+  }
+}
+
 }  // namespace
 
 // Each entry point launches its kernel on ``stream`` and returns
 // cudaGetLastError() (0 when the launch was accepted), or
 // cudaErrorInvalidValue for a mode it does not know. The fetch probes take
-// their (rows, 128) int32 inputs and output and run one 128-thread block per
-// row; ``mode`` is the index in the Python module's MODES.
+// their (rows, 128) int32 inputs and output; ``mode`` is the index in the
+// Python module's MODES. probe_gather2d and fetch_microbench also take the
+// chunk plan (``chunks`` blocks a row of ``chunk`` iterations, the last
+// ragged) and zero their output first; probe_packed_fetch runs one
+// 128-thread block per row.
 
 extern "C" int probe_gather2d(int mode, const void* atlas, const void* rel,
                               const void* ln, void* out, int rows, int iters,
-                              void* stream) {
-  const auto a = static_cast<const int*>(atlas);
-  const auto r = static_cast<const int*>(rel);
-  const auto l = static_cast<const int*>(ln);
-  const auto o = static_cast<int*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kBase8:
-      probe_gather2d_kernel<kBase8><<<rows, kLanes, 0, s>>>(a, r, l, o, iters);
-      break;
-    case kSub8:
-      probe_gather2d_kernel<kSub8><<<rows, kLanes, 0, s>>>(a, r, l, o, iters);
-      break;
-    case kTa1024:
-      probe_gather2d_kernel<kTa1024><<<rows, kLanes, 0, s>>>(a, r, l, o, iters);
-      break;
-    case kTake1024:
-      probe_gather2d_kernel<kTake1024><<<rows, kLanes, 0, s>>>(a, r, l, o,
-                                                               iters);
-      break;
-    case kTa4096:
-      probe_gather2d_kernel<kTa4096><<<rows, kLanes, 0, s>>>(a, r, l, o, iters);
-      break;
-    default:
-      return bad_mode();
-  }
-  return status();
+                              int chunks, int chunk, void* stream) {
+  using Launch = int (*)(const void*, const void*, const void*, void*, int,
+                         int, int, int, void*);
+  const Launch launches[] = {
+      gather2d_launch<kBase8>, gather2d_launch<kSub8>,
+      gather2d_launch<kTa1024>, gather2d_launch<kTake1024>,
+      gather2d_launch<kTa4096>};
+  if (mode < 0 || mode >= int(sizeof launches / sizeof launches[0]))
+    return bad_mode();
+  return launches[mode](atlas, rel, ln, out, rows, iters, chunks, chunk,
+                        stream);
 }
 
 extern "C" int probe_packed_fetch(int mode, const void* blk, const void* row,
@@ -334,40 +573,16 @@ extern "C" int probe_packed_fetch(int mode, const void* blk, const void* row,
 
 extern "C" int fetch_microbench(int mode, const void* atlas, const void* key,
                                 const void* ln, void* out, int rows,
-                                int iters, void* stream) {
-  const auto a = static_cast<const int*>(atlas);
-  const auto k = static_cast<const int*>(key);
-  const auto l = static_cast<const int*>(ln);
-  const auto o = static_cast<int*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kFull:
-      fetch_microbench_kernel<kFull><<<rows, kLanes, 0, s>>>(a, k, l, o, iters);
-      break;
-    case kNoLoad:
-      fetch_microbench_kernel<kNoLoad><<<rows, kLanes, 0, s>>>(a, k, l, o,
-                                                               iters);
-      break;
-    case kNoGather:
-      fetch_microbench_kernel<kNoGather><<<rows, kLanes, 0, s>>>(a, k, l, o,
-                                                                 iters);
-      break;
-    case kNoSelect:
-      fetch_microbench_kernel<kNoSelect><<<rows, kLanes, 0, s>>>(a, k, l, o,
-                                                                 iters);
-      break;
-    case kLoadOnly:
-      fetch_microbench_kernel<kLoadOnly><<<rows, kLanes, 0, s>>>(a, k, l, o,
-                                                                 iters);
-      break;
-    case kMicroEmpty:
-      fetch_microbench_kernel<kMicroEmpty><<<rows, kLanes, 0, s>>>(a, k, l, o,
-                                                                   iters);
-      break;
-    default:
-      return bad_mode();
-  }
-  return status();
+                                int iters, int chunks, int chunk,
+                                void* stream) {
+  const FoldKernel kernels[] = {
+      fetch_microbench_kernel<kFull>, fetch_microbench_kernel<kNoLoad>,
+      fetch_microbench_kernel<kNoGather>, fetch_microbench_kernel<kNoSelect>,
+      fetch_microbench_kernel<kLoadOnly>, fetch_microbench_kernel<kMicroEmpty>};
+  if (mode < 0 || mode >= int(sizeof kernels / sizeof kernels[0]))
+    return bad_mode();
+  return fold_launch(kernels[mode], atlas, key, ln, out, rows, iters, chunks,
+                     chunk, stream);
 }
 
 // tab f32 (kNCMax * 8, 128), hbm i32 (kNT * kNCMax, 8, 128), nc one i32 in

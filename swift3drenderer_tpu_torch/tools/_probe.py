@@ -1,7 +1,8 @@
 """What the probe modules share: binding and launching a C entry point of
-``csrc/probes.cu``, checking its inputs (the raster wrappers' check),
-folding a stack of values with an exact bitwise operation, timing, and the
-command line."""
+``csrc/probes.cu``, checking its inputs (the raster wrappers' check), the
+chunk plan of the probes whose iteration axis is spread over the card,
+folding a stack of values with an exact bitwise operation, counting L1 and
+shared-memory wavefronts, timing, and the command line."""
 
 from __future__ import annotations
 
@@ -54,6 +55,36 @@ def check_iters(iters: int, limit: int = 2 ** 31) -> None:
         raise ValueError(f"iters must be in [0, {limit}), got {iters}")
 
 
+# The chunk plan of probe_gather2d and fetch_microbench (csrc/probes.cu):
+# the iteration axis [0, iters) is cut into chunks of MIN_CHUNK or more
+# iterations, enough for WAVES waves of RESIDENT 128-thread blocks on each SM
+# of the card, each a multiple of UNROLL (fold_chunk's kUnroll; it also
+# starts a staged gather's 4-block stages on a multiple of 4).
+UNROLL = 4
+MIN_CHUNK = 256
+RESIDENT = 16     # 128-thread blocks an SM holds at once (2,048 threads)
+WAVES = 4
+
+
+def chunk_plan(iters: int, rows: int, sms: int) -> tuple[int, int]:
+    """(chunks, chunk) for a (rows, 128) probe of ``iters`` iterations on a
+    card of ``sms`` SMs: chunk k of a row is iterations [k * chunk,
+    min((k + 1) * chunk, iters)) of the global counter, so the ``chunks``
+    chunks cover [0, iters) once, the last ragged. No chunk is shorter than
+    MIN_CHUNK but the last; 0 iterations give 0 chunks (the kernel then
+    runs one block a row group that folds nothing)."""
+    target = max(1, sms * RESIDENT * WAVES // rows)
+    chunk = max(MIN_CHUNK, -(-iters // target))
+    chunk = -(-chunk // UNROLL) * UNROLL
+    return -(-iters // chunk), chunk
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """The SMs of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def fold(values: torch.Tensor, op) -> torch.Tensor:
     """``op`` (bitwise or / xor: exact, associative, commutative) over the
     leading axis, pairwise."""
@@ -62,6 +93,25 @@ def fold(values: torch.Tensor, op) -> torch.Tensor:
         head = op(values[:half], values[half:2 * half])
         values = torch.cat([head, values[2 * half:]]) if values.shape[0] % 2 else head
     return values[0]
+
+
+def distinct_lines(words: torch.Tensor) -> int:
+    """L1 wavefronts of warp-wide loads at the word offsets ``words``, a row
+    of 32 a warp: the distinct 128-byte lines each load touches (the array
+    starting on a line)."""
+    lines = (words.reshape(-1, 32).long() >> 5).sort(dim=1).values
+    return int(lines.shape[0] + (lines[:, 1:] != lines[:, :-1]).sum())
+
+
+def bank_wavefronts(words: torch.Tensor) -> int:
+    """Shared-memory wavefronts of warp-wide loads at the word offsets
+    ``words``, a row of 32 a warp: for each load, the most distinct words
+    it reads from one of the 32 banks (a word's bank is its offset mod 32;
+    lanes reading one word share it)."""
+    total = 0
+    for warp in words.reshape(-1, 32).long():
+        total += int(torch.bincount(warp.unique() % 32, minlength=32).max())
+    return total
 
 
 def time_ms(fn, device: torch.device, reps: int = 5) -> float:

@@ -14,7 +14,11 @@ pixel whose key is ``b * 8 + r``:
   empty      the loop alone (OR of b).
 
 Differences between modes isolate each component's cost per iteration.
-Kernel: ``csrc/probes.cu``, ``fetch_microbench_kernel``.
+Kernel: ``csrc/probes.cu``, ``fetch_microbench_kernel``. The card runs the
+iteration axis in chunks on every SM at once (``_probe.chunk_plan``) and ORs
+the partials, so ns an iteration (the launch's ms over ``ITERS``, as the TPU
+tool prints it) is the whole strip's cost an iteration at full occupancy,
+not one thread's latency.
 
     python -m swift3drenderer_tpu_torch.tools.fetch_microbench [--device cpu]
 """
@@ -114,8 +118,9 @@ def fetch_microbench(mode: str, atlas: torch.Tensor, key: torch.Tensor,
     atlas int32 (512, 512); key int32 (32, 128); ln int32 (32, 128) in
     [0, 128), not checked on the card (a host read); iters < 2 ** 28, so
     ``b * 8 + r`` stays in int32. Returns int32 (32, 128). CPU tensors take
-    the plain version; CUDA tensors launch ``fetch_microbench_kernel<mode>``,
-    counted in ``fetch_microbench.launches``.
+    the plain version; CUDA tensors launch ``fetch_microbench_kernel<mode>``
+    over the chunks of ``_probe.chunk_plan``, counted in
+    ``fetch_microbench.launches``.
     """
     m = MODES.index(mode)
     dev = key.device
@@ -125,11 +130,13 @@ def fetch_microbench(mode: str, atlas: torch.Tensor, key: torch.Tensor,
     _probe.check_iters(iters, 2 ** 28)
     if not _probe.kernel_device(fetch_microbench, key):
         return fetch_microbench_plain(mode, atlas, key, ln, iters)
+    chunks, chunk = _probe.chunk_plan(iters, SPH, _probe.sm_count(dev.index))
     out = torch.empty((SPH, 128), dtype=torch.int32, device=dev)
     P, I = _probe.P, _probe.I
-    _probe.launch(fetch_microbench, "fetch_microbench", (I, P, P, P, P, I, I),
+    _probe.launch(fetch_microbench, "fetch_microbench",
+                  (I, P, P, P, P, I, I, I, I),
                   (m, atlas.data_ptr(), key.data_ptr(), ln.data_ptr(),
-                   out.data_ptr(), SPH, iters), dev)
+                   out.data_ptr(), SPH, iters, chunks, chunk), dev)
     return out
 
 
@@ -142,6 +149,15 @@ def work(mode: str, key: torch.Tensor, iters: int):
     written once; OPS_PER_ITER per pixel-iteration."""
     atlas = ROWS_READ[mode] * min(iters, NBLK) * 128 * 4
     return atlas + 3 * key.numel() * 4, OPS_PER_ITER[mode] * key.numel() * iters
+
+
+def load_words(mode: str, ln: torch.Tensor) -> list:
+    """The word offsets within an atlas block (512 words a row) that each of
+    an iteration's ROWS_READ loads reads, (32, 128) a load: the access
+    pattern that L1 sees (the same in every block)."""
+    own = torch.arange(128).expand(SPH, 128)
+    at = own if mode in ("nogather", "loadonly") else ln.long().cpu()
+    return [r * 512 + at for r in range(ROWS_READ[mode])]
 
 
 def main(device: str = "cuda") -> dict:

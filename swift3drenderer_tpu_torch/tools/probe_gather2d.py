@@ -15,7 +15,13 @@ strip XOR-accumulates one texel out of atlas block ``b``:
              ``(rel << 9) | ln``.
 
 On the TPU only ``base8`` lowered in Mosaic; on the card every mode is one
-or eight plain indexed loads (``csrc/probes.cu``, ``probe_gather2d_kernel``).
+or eight plain indexed loads (``csrc/probes.cu``), from a copy of the block
+staged in shared memory (``probe_gather2d_staged_kernel``) or, for sub8,
+through L1 (``probe_gather2d_kernel``). The card runs the iteration axis in
+chunks on every SM at once (``_probe.chunk_plan``) and XORs the partials, so
+ns an iteration (the launch's ms over ``ITERS``, as the TPU tool prints it)
+is the whole strip's cost an iteration at full occupancy, not one thread's
+latency.
 
     python -m swift3drenderer_tpu_torch.tools.probe_gather2d [--device cpu]
 """
@@ -42,6 +48,11 @@ ATLAS_SHAPES = {"base8": (NBLK * 8, 128), "sub8": (NBLK * 8, 128),
 # the others: block index 1, index arithmetic 4 (sub8: 3), one load, XOR.
 OPS_PER_ITER = {"base8": 23, "sub8": 8, "ta1024": 9, "take1024": 9,
                 "ta4096": 9}
+# The staged kernel's pixels a thread and bytes a stage (csrc/probes.cu's
+# kPixels and kStageBytes): a stage holds STAGE_BYTES of consecutive blocks,
+# and a thread reads each of them for STAGED_PIXELS pixels.
+STAGED_PIXELS = 2
+STAGE_BYTES = 16 * 1024
 
 
 def atlas_for(mode: str, rng: np.random.Generator) -> np.ndarray:
@@ -125,8 +136,9 @@ def probe_gather2d(mode: str, atlas: torch.Tensor, rel: torch.Tensor,
     atlas int32 of ``ATLAS_SHAPES[mode]``; rel int32 (16, 128) in [0, 8); ln
     int32 (16, 128) in [0, 128) ([0, 512) for ta4096), not checked on the
     card (a host read). Returns int32 (16, 128). CPU tensors take the plain
-    version; CUDA tensors launch ``probe_gather2d_kernel<mode>``, counted in
-    ``probe_gather2d.launches``.
+    version; CUDA tensors launch ``probe_gather2d_staged_kernel<mode>`` (sub8:
+    ``probe_gather2d_kernel<mode>``) over the chunks of
+    ``_probe.chunk_plan``, counted in ``probe_gather2d.launches``.
     """
     m = MODES.index(mode)
     dev = rel.device
@@ -136,11 +148,13 @@ def probe_gather2d(mode: str, atlas: torch.Tensor, rel: torch.Tensor,
     _probe.check_iters(iters)
     if not _probe.kernel_device(probe_gather2d, rel):
         return probe_gather2d_plain(mode, atlas, rel, ln, iters)
+    chunks, chunk = _probe.chunk_plan(iters, SPH, _probe.sm_count(dev.index))
     out = torch.empty((SPH, 128), dtype=torch.int32, device=dev)
     P, I = _probe.P, _probe.I
-    _probe.launch(probe_gather2d, "probe_gather2d", (I, P, P, P, P, I, I),
+    _probe.launch(probe_gather2d, "probe_gather2d",
+                  (I, P, P, P, P, I, I, I, I),
                   (m, atlas.data_ptr(), rel.data_ptr(), ln.data_ptr(),
-                   out.data_ptr(), SPH, iters), dev)
+                   out.data_ptr(), SPH, iters, chunks, chunk), dev)
     return out
 
 
@@ -154,6 +168,18 @@ def work(mode: str, atlas: torch.Tensor, rel: torch.Tensor, iters: int):
     visited = atlas.numel() * 4 * min(iters, NBLK) // NBLK
     nbytes = visited + 3 * rel.numel() * 4
     return nbytes, OPS_PER_ITER[mode] * rel.numel() * iters
+
+
+def load_words(mode: str, rel: torch.Tensor, ln: torch.Tensor) -> list:
+    """The word offsets within an atlas block that each of an iteration's
+    loads reads, (16, 128) a load: the access pattern that L1 or shared
+    memory sees (the same in every block)."""
+    rel, ln = rel.long().cpu(), ln.long().cpu()
+    if mode == "base8":
+        return [r * 128 + ln for r in range(8)]
+    if mode == "sub8":
+        return [rel * 128 + torch.arange(128)]
+    return [(rel << (9 if mode == "ta4096" else 7)) | ln]
 
 
 def main(device: str = "cuda") -> dict:

@@ -86,23 +86,30 @@ def variant_source(name: str) -> str:
     return src.replace(old, new)
 
 
-def load_variant(index: int, name: str):
-    """The variant's copy of the package, imported as ``s3d_variant<index>``:
-    (its ops.raster, its kernels module)."""
+def load_copy(alias: str, name: str, source: str, text: str):
+    """A copy of the package under ``_build/variants/<name>/`` whose
+    ``csrc/<source>`` is ``text``, imported as package ``alias``."""
     pkg = os.path.dirname(kernels.CSRC)
     root = os.path.join(kernels.BUILD_DIR, "variants",
                         name.replace(" ", "_"), os.path.basename(pkg))
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(pkg, root, ignore=shutil.ignore_patterns(
         "_build", "__pycache__"))
-    with open(os.path.join(root, "csrc", kernels.RASTER), "w") as f:
-        f.write(variant_source(name))
-    alias = f"s3d_variant{index}"
+    with open(os.path.join(root, "csrc", source), "w") as f:
+        f.write(text)
     spec = importlib.util.spec_from_file_location(
         alias, os.path.join(root, "__init__.py"), submodule_search_locations=[root])
     module = importlib.util.module_from_spec(spec)
     sys.modules[alias] = module
     spec.loader.exec_module(module)
+    return module
+
+
+def load_variant(index: int, name: str):
+    """The variant's copy of the package, imported as ``s3d_variant<index>``:
+    (its ops.raster, its kernels module)."""
+    alias = f"s3d_variant{index}"
+    load_copy(alias, name, kernels.RASTER, variant_source(name))
     return (importlib.import_module(f"{alias}.ops.raster"),
             importlib.import_module(f"{alias}.kernels"))
 

@@ -9,7 +9,8 @@ slot records and residual filter at several K and G, and the CUDA renderer (sing
 field (3,078 slots, the segmented path); the captured frames (CUDA graphs)
 against the eager frames, bucketed against exact, after ``update_scene``,
 their ownership, counters and failed captures; the probes of
-``swift3drenderer_tpu_torch.tools`` against their plain versions; the
+``swift3drenderer_tpu_torch.tools`` against their plain versions, the two
+whose iterations run in chunks also replayed from a CUDA graph; the
 app's flight and the ``"xla"`` backend on the card against the CPU; and
 ``ShardedRenderer.render_batch`` replayed from its graph (on an NCCL world
 of one rank, and each block of an emulated 2 x 4 grid) against its eager
@@ -41,6 +42,7 @@ from swift3drenderer_tpu_torch import renderer as trenderer
 from swift3drenderer_tpu_torch.models import SCENES
 from swift3drenderer_tpu_torch.ops import raster as tr
 from swift3drenderer_tpu_torch.renderer import build_setup, scene_to_device
+from swift3drenderer_tpu_torch.tools import _probe
 from swift3drenderer_tpu_torch.tools import fetch_microbench as pfm
 from swift3drenderer_tpu_torch.tools import probe_dynamic_grid as pdg
 from swift3drenderer_tpu_torch.tools import probe_gather2d as pg2
@@ -451,6 +453,9 @@ def test_flat_kernel_edges_match_plain_on_cuda(sampling):
 
 
 PROBE_ITERS = (1, 3, 64, 130)   # and each tool's full ITERS
+# The probes whose iterations run in chunks also at 0 and across the chunk
+# length of small counts (tools/_probe.py chunk_plan).
+CHUNKED_ITERS = (0, _probe.MIN_CHUNK, _probe.MIN_CHUNK + 1)
 
 
 def eager(r, ms, w, h):
@@ -617,7 +622,8 @@ def test_failed_capture_raises_on_cuda():
 @pytest.mark.parametrize("probe", ["gather2d", "packed_fetch", "fetch_microbench"])
 def test_fetch_probes_match_plain_on_cuda(probe):
     """Every mode of each fetch probe's kernel against its plain version on
-    the card, bit for bit, at small counts and the tool's full ITERS; each
+    the card, bit for bit, at small counts (gather2d and fetch_microbench
+    also at 0 and across their chunk length) and the tool's full ITERS; each
     call is one launch."""
     need_card()
     if probe == "gather2d":
@@ -634,14 +640,49 @@ def test_fetch_probes_match_plain_on_cuda(probe):
                                 pfm.fetch_microbench_plain, pfm.ITERS)
         data = pfm.inputs("cuda")
         cases = [(m, *data, ()) for m in pfm.MODES]
+    counts = PROBE_ITERS + (full,)
+    if probe != "packed_fetch":
+        counts += CHUNKED_ITERS
     for mode, a, b, c, extra in cases:
-        for iters in PROBE_ITERS + (full,):
+        for iters in counts:
             before = wrapper.launches
             got = wrapper(mode, a, b, c, *extra, iters)
             want = plain(mode, a, b, c, *extra, iters)
             torch.cuda.synchronize()
             assert wrapper.launches == before + 1
             assert torch.equal(got, want), (mode, extra, iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["gather2d", "fetch_microbench"])
+def test_chunked_probes_capture_in_a_graph_on_cuda(probe):
+    """One call of each mode of the chunked probes (the output's zeroing and
+    the chunked launch) is captured in a CUDA graph, counted as one launch,
+    and each replay gives the plain version's bits again."""
+    need_card()
+    if probe == "gather2d":
+        wrapper, plain, data = (pg2.probe_gather2d, pg2.probe_gather2d_plain,
+                                pg2.inputs("cuda"))
+        cases = [(m, *data[m]) for m in pg2.MODES]
+    else:
+        wrapper, plain, data = (pfm.fetch_microbench,
+                                pfm.fetch_microbench_plain, pfm.inputs("cuda"))
+        cases = [(m, *data) for m in pfm.MODES]
+    iters = _probe.MIN_CHUNK * 3 + 1
+    for args in cases:
+        wrapper(*args, iters)   # loads the library outside the capture
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        before = wrapper.launches
+        with torch.cuda.graph(graph):
+            got = wrapper(*args, iters)
+        assert wrapper.launches == before + 1
+        want = plain(*args, iters)
+        for _ in range(2):
+            got.fill_(-1)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), args[0]
 
 
 @pytest.mark.cuda

@@ -14,7 +14,9 @@ literal loops too. The kernels themselves run only on a card
 
 import functools
 import importlib.util
+import operator
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -24,10 +26,13 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from swift3drenderer_tpu_torch import kernels
+from swift3drenderer_tpu_torch.tools import _probe
 from swift3drenderer_tpu_torch.tools import fetch_microbench as pfm
 from swift3drenderer_tpu_torch.tools import probe_dynamic_grid as pdg
 from swift3drenderer_tpu_torch.tools import probe_gather2d as pg2
 from swift3drenderer_tpu_torch.tools import probe_packed_fetch as ppf
+from swift3drenderer_tpu_torch.tools import probe_variants
 
 # One intra-op thread a process: the suite runs one pytest worker per core,
 # and torch's default of a thread per core in each worker oversubscribes
@@ -147,6 +152,143 @@ def test_fetch_microbench_plain_equals_literal_loop(mode):
                 pfm.fetch_microbench_plain(mode, atlas, k, ln, iters).numpy(),
                 pfm.expected(mode, *host(atlas, k, ln), iters),
                 err_msg=str(iters))
+
+
+# The card's chunk plan (tools/_probe.py chunk_plan, csrc/probes.cu
+# fold_chunk): each chunk folded as the kernels' L1 path folds it (UNROLL
+# accumulators, then the ragged rest), the partials folded into a zeroed
+# output, must give the oracle's loop. The counts straddle the period (64) and the chunk
+# length at small counts (MIN_CHUNK), on the H100's 132 SMs.
+PLAN_ITERS = (0, 1, 3, 63, 64, 65, 130, _probe.MIN_CHUNK - 1,
+              _probe.MIN_CHUNK, _probe.MIN_CHUNK + 1,
+              2 * _probe.MIN_CHUNK + 3)
+PLAN_SMS = 132
+
+
+def gather2d_body(mode, atlas, rel, ln):
+    """probe_gather2d's iteration ``it``: the texel from block it % 64."""
+    lane = np.arange(128)
+    if mode in ("base8", "sub8"):
+        blocks = atlas.reshape(pg2.NBLK, 8, 128)
+        return lambda it: blocks[it % pg2.NBLK][rel, lane if mode == "sub8" else ln]
+    shift = 9 if mode == "ta4096" else 7
+    return lambda it: atlas[it % pg2.NBLK][(rel << shift) | ln]
+
+
+def fetch_body(mode, atlas, key, ln):
+    """fetch_microbench's iteration ``b``: the mode's part of the fetch body
+    over block b % 64, as the kernel computes it."""
+    lane = np.arange(128)
+
+    def body(b):
+        if mode == "empty":
+            return np.full(key.shape, b, np.int32)
+        block = atlas[(b % 64) * 8: (b % 64) * 8 + 8, :128]
+        if mode == "loadonly":
+            return np.broadcast_to(block[0][lane], key.shape)
+        acc = np.zeros(key.shape, np.int32)
+        for r in range(8):
+            g = (np.full(key.shape, 7, np.int32) if mode == "noload"
+                 else block[r][lane] if mode == "nogather" else block[r][ln])
+            acc |= g if mode == "noselect" else np.where(key == b * 8 + r, g, 0)
+        return acc
+    return body
+
+
+@pytest.mark.parametrize("probe,mode", [("gather2d", m) for m in pg2.MODES]
+                         + [("fetch_microbench", m) for m in pfm.MODES])
+def test_chunk_plan_folds_to_the_oracle(probe, mode):
+    if probe == "gather2d":
+        atlas, rel, ln = host(*pg2.inputs("cpu")[mode])
+        body, op, rows = gather2d_body(mode, atlas, rel, ln), np.bitwise_xor, pg2.SPH
+        oracle = functools.partial(pg2.expected, mode, atlas, rel, ln)
+    else:
+        atlas, key, ln = host(*pfm.inputs("cpu"))
+        body, op, rows = fetch_body(mode, atlas, key, ln), np.bitwise_or, pfm.SPH
+        oracle = functools.partial(pfm.expected, mode, atlas, key, ln)
+    for iters in PLAN_ITERS:
+        chunks, chunk = _probe.chunk_plan(iters, rows, PLAN_SMS)
+        assert chunk % _probe.UNROLL == 0 and chunk >= _probe.MIN_CHUNK
+        assert (chunks - 1) * chunk < iters <= chunks * chunk or iters == chunks == 0
+        out = np.zeros((rows, 128), np.int32)
+        for k in range(max(chunks, 1)):   # an empty call still runs one chunk
+            lo = k * chunk
+            hi = lo + max(0, min(chunk, iters - lo))
+            acc = [np.zeros((rows, 128), np.int32) for _ in range(_probe.UNROLL)]
+            it = lo
+            while hi - it >= _probe.UNROLL:
+                for j in range(_probe.UNROLL):
+                    acc[j] = op(acc[j], body(it + j))
+                it += _probe.UNROLL
+            for it in range(it, hi):
+                acc[0] = op(acc[0], body(it))
+            out = op(out, functools.reduce(op, acc))
+        np.testing.assert_array_equal(out, oracle(iters), err_msg=str(iters))
+    # At the tool's full count the plan fills the card: WAVES waves of
+    # RESIDENT blocks an SM, give or take one chunk a row.
+    full = pg2.ITERS if probe == "gather2d" else pfm.ITERS
+    chunks, chunk = _probe.chunk_plan(full, rows, PLAN_SMS)
+    assert (chunks - 1) * chunk < full <= chunks * chunk
+    assert abs(chunks * rows - PLAN_SMS * _probe.RESIDENT * _probe.WAVES) <= rows
+
+
+@pytest.mark.parametrize("name", list(probe_variants.VARIANTS))
+def test_probe_variant_rewrites_one_line(name):
+    """Each build variant of tools/probe_variants.py finds the default's line
+    in csrc/probes.cu once and changes that line alone."""
+    with open(os.path.join(kernels.CSRC, kernels.PROBES)) as f:
+        src = f.read().splitlines()
+    got = probe_variants.variant_source(name).splitlines()
+    old, new = probe_variants.VARIANTS[name]
+    assert len(got) == len(src)
+    assert [(a, b) for a, b in zip(src, got) if a != b] == [(old, new)]
+
+
+def test_probe_constants_are_the_kernels():
+    """The chunk plan's UNROLL is csrc/probes.cu's kUnroll, and the staged
+    gather's STAGED_PIXELS and STAGE_BYTES (from which the load count of its
+    loop is checked) are its kPixels and kStageBytes."""
+    with open(os.path.join(kernels.CSRC, kernels.PROBES)) as f:
+        src = f.read()
+    consts = {}
+    for name, value in re.findall(r"constexpr int (k\w+) = ([\d *]+);", src):
+        factors = [int(v) for v in value.split("*")]
+        consts[name] = functools.reduce(operator.mul, factors)
+    assert consts["kUnroll"] == _probe.UNROLL
+    assert consts["kPixels"] == pg2.STAGED_PIXELS
+    assert consts["kStageBytes"] == pg2.STAGE_BYTES
+
+
+@pytest.mark.parametrize("words,lines,banks", [
+    (torch.arange(32), 1, 1),                 # one 128-byte line, a word a bank
+    (torch.arange(32) * 32, 32, 32),          # a line each, all in bank 0
+    (torch.zeros(32, dtype=torch.long), 1, 1),   # one word, broadcast
+    (torch.arange(64).reshape(2, 32) * 2, 4, 4),   # two warps, stride 2
+])
+def test_wavefront_counts(words, lines, banks):
+    assert _probe.distinct_lines(words) == lines
+    assert _probe.bank_wavefronts(words) == banks
+
+
+def test_load_words_are_the_kernels_offsets():
+    """Each mode's per-load word offsets: base8 eight rows at ln, sub8 (rel,
+    own lane), ta* (rel << 7 or 9) | ln; fetch_microbench's rows of a
+    512-wide atlas at ln or the own lane; none for noload and empty."""
+    _, rel, ln = pg2.inputs("cpu")["base8"]
+    lane = torch.arange(128).expand(16, 128)
+    words = pg2.load_words("base8", rel, ln)
+    assert len(words) == 8 and torch.equal(words[3], 3 * 128 + ln.long())
+    assert torch.equal(pg2.load_words("sub8", rel, ln)[0], rel.long() * 128 + lane)
+    _, rel, ln = pg2.inputs("cpu")["ta4096"]
+    assert torch.equal(pg2.load_words("ta4096", rel, ln)[0],
+                       (rel.long() << 9) | ln.long())
+    _, key, ln = pfm.inputs("cpu")
+    for mode in pfm.MODES:
+        got = pfm.load_words(mode, ln)
+        assert len(got) == pfm.ROWS_READ[mode]
+    assert torch.equal(pfm.load_words("full", ln)[7], 7 * 512 + ln.long())
+    assert torch.equal(pfm.load_words("loadonly", ln)[0],
+                       torch.arange(128).expand(32, 128))
 
 
 def test_dynamic_grid_plain_clamps_the_count():
