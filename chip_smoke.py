@@ -98,19 +98,23 @@ Phases; any failed check raises and the script exits non-zero:
      and read just after (every mode checked against the tool's oracle and
      timed at the tool's full ITERS); every mode's kernel against its plain
      version on the card, bit for bit, at 1, 3, 64, 130 iterations and the
-     full ITERS (probe_gather2d and fetch_microbench, whose iterations run
-     in chunks, also at 0 and across their chunk length, each call one
-     launch), and the dynamic grid at nc = 0-4 with nc in device memory;
-     torch.profiler shows the dynamic-grid call makes no device-to-host copy;
-     `cuobjdump -sass` counts each instance's global and shared loads
-     inside its loops; each mode of the chunked probes fails if its time
-     falls under its bound or its main loop holds fewer loads than an
-     iteration's times the iterations it covers (global loads through L1,
-     shared loads in the staged gather: work dropped), and its printed line
-     gives the floors of its L1 and shared-memory wavefronts and warp loads
-     at one an SM a cycle (worked out, not measured, so kept out of the
-     kernels line); with --parent DIR each of their modes is timed against
-     the parent tree's in turns parent, this, this, parent;
+     full ITERS (probe_gather2d, probe_packed_fetch and fetch_microbench,
+     whose iterations run in chunks, also at 0 and across their chunk
+     length, the packed fetch at mix 0 and 127, each call one launch), and
+     the dynamic grid at nc = 0-4 with nc in device memory; torch.profiler
+     gives the dynamic grid's device time a launch at nc = 0-4 (nc = 0, no
+     copy, is its fixed cost) and shows its calls make no device-to-host
+     copy or scalar read; `cuobjdump -sass` counts each instance's global
+     and shared loads inside its loops; each mode of the chunked probes
+     fails if its time falls under its bound or its main loop holds fewer
+     loads than an iteration's times the iterations it covers (global loads
+     through L1, shared loads in the staged gather and the staged packed
+     fetch: work dropped), and its printed line gives the floors of its L1
+     and shared-memory wavefronts and warp loads at one an SM a cycle
+     (worked out, not measured, so kept out of the kernels line); with
+     --parent DIR each of their modes is timed against the parent tree's,
+     and the dynamic grid's device time at each nc profiled against the
+     parent's, in turns parent, this, this, parent (nc = 4 must be faster);
   8. the captured frames (run after phase 5, before the profiles of phase
      6, which would inflate its host times): every phase 5 cell's replayed
      flight bit-equal to its eager flight (both routes and samplings,
@@ -341,10 +345,10 @@ def time_ms(torch, fn, reps: int, warmup: int = 5, windows: int = 5) -> float:
 def device_busy(torch, fn) -> dict:
     """From the events of a torch.profiler trace of one call of ``fn``: the
     share of its wall time the card spends in kernels, the number of kernels
-    launched, each kernel's device time (µs summed over the window, by name),
-    and the device-to-host copies and scalar reads (``_local_scalar_dense``)
-    the host made. ``busy`` is "not measured" if the trace holds no device
-    time."""
+    launched, each kernel's device time (µs summed over the window, by name,
+    and each launch's µs under ``durations``), and the device-to-host copies
+    and scalar reads (``_local_scalar_dense``) the host made. ``busy`` is
+    "not measured" if the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -355,7 +359,7 @@ def device_busy(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    per_kernel = {}
+    per_kernel, durations = {}, {}
     launched = d2h = scalar_reads = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -367,11 +371,13 @@ def device_busy(torch, fn) -> dict:
             launched += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us())
+            durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
         elif e.name in ("aten::_local_scalar_dense", "aten::item"):
             scalar_reads += 1
     total = sum(per_kernel.values())
     return {"busy": total / wall_us if total > 0 else "not measured",
-            "launched": launched, "per_kernel": per_kernel, "d2h": d2h,
+            "launched": launched, "per_kernel": per_kernel,
+            "durations": durations, "d2h": d2h,
             "scalar_reads": scalar_reads}
 
 
@@ -667,13 +673,15 @@ def flat_split(torch, trees: dict, setups: dict, textures: dict, bg: int,
 PROBE_ITERS = (1, 3, 64, 130)   # small counts, beside each tool's full ITERS
 PROBE_MIXES = (0, 127)
 PROBE_CHUNKS = (0, 1, 2, 3, 4)
-DYNAMIC_CALLS = 20
-CHUNKED = ("probe_gather2d", "fetch_microbench")   # redesigned, PR 12
+DYNAMIC_CALLS = 50
+# The probes whose iterations run in chunks on the whole card.
+CHUNKED = ("probe_gather2d", "probe_packed_fetch", "fetch_microbench")
 PROBE_AB_REPS = 5
 CHUNK_KEYS = ("this_ms_ab", "parent_ms", "speedup_vs_parent")
 PROBE_FAMILIES = {"probe_gather2d": ("probe_gather2d_kernel",
                                      "probe_gather2d_staged_kernel"),
-                  "probe_packed_fetch": ("probe_packed_fetch_kernel",),
+                  "probe_packed_fetch": ("probe_packed_fetch_kernel",
+                                         "probe_packed_fetch_staged_kernel"),
                   "fetch_microbench": ("fetch_microbench_kernel",),
                   "probe_dynamic_grid": ("probe_dynamic_grid_kernel",)}
 
@@ -755,6 +763,15 @@ def probe_sass(sass: dict, probe: str, mode_index: int | None) -> dict:
     return {"error": sass.get("error", "not measured: instance not found")}
 
 
+def quartiles_us(values: list) -> list:
+    """The lower and upper quartiles of ``values``, or [] for fewer than
+    two."""
+    if len(values) < 2:
+        return []
+    q = statistics.quantiles(values, n=4)
+    return [q[0], q[2]]
+
+
 def max_sm_clock_hz():
     """The card's highest SM clock (``nvidia-smi``), or None if unread."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -771,27 +788,38 @@ def chunked_checks(entry: dict, name: str, module, mode: str, args: tuple,
     """Check one mode of a chunked probe and add its A/B against the parent
     tree's. Its time may not fall under its bound, nor the main loop of its
     kernel hold fewer loads than an iteration's times the iterations it
-    covers: UNROLL iterations through L1 (global loads), or, in the staged
+    covers: UNROLL iterations through L1 (global loads) or from the packed
+    fetch's block in shared memory (shared loads), or, in the staged
     gather, STAGED_PIXELS pixels a thread times a stage's iterations from
     shared memory; either would mean work was dropped. Returns the mode's
     floors, worked out from its inputs and not measured (for the printed
     line only): at the highest SM clock and one wavefront an SM a cycle, an
     iteration's L1 wavefronts (a 128-byte line a warp's load touches), for
-    probe_gather2d its shared-memory wavefronts (a warp's load's bank
-    conflicts, if staged), and its warp-wide loads (L1's and shared
-    memory's 128 bytes a cycle)."""
+    probe_gather2d and probe_packed_fetch its shared-memory wavefronts (a
+    warp's load's bank conflicts, if staged), and its warp-wide loads (L1's
+    and shared memory's 128 bytes a cycle). The packed fetch's lanes shift
+    with it & mix, so its counts are the mean over the shifts the call
+    visits."""
     from swift3drenderer_tpu_torch.tools import _probe
 
     atlas, ln, iters = args[1], args[3], args[-1]
     if name == "probe_gather2d":
-        words = module.load_words(mode, args[2], ln)
+        patterns = [module.load_words(mode, args[2], ln)]
+    elif name == "probe_packed_fetch":
+        mix = args[4]
+        shifts = {it & mix for it in range(min(iters, 1 << mix.bit_length()))}
+        patterns = [module.load_words(mode, ln, d) for d in sorted(shifts)]
     else:
-        words = module.load_words(mode, ln)
-    loads = len(words)
+        patterns = [module.load_words(mode, ln)]
+    loads = len(patterns[0])
+
+    def per_iter(count):
+        return sum(sum(map(count, words)) for words in patterns) / len(patterns)
+
     cycles_ms = iters / (sms * clock_hz) * 1e3 if clock_hz else None
-    counts = {"l1": sum(map(_probe.distinct_lines, words))}
-    if name == "probe_gather2d":   # whose modes may stage their blocks
-        counts["smem"] = sum(map(_probe.bank_wavefronts, words))
+    counts = {"l1": per_iter(_probe.distinct_lines)}
+    if name != "fetch_microbench":   # whose modes may stage their blocks
+        counts["smem"] = per_iter(_probe.bank_wavefronts)
     floors = {}
     for key, count in counts.items():
         floors[f"{key}_wavefronts_per_iter"] = count
@@ -801,11 +829,12 @@ def chunked_checks(entry: dict, name: str, module, mode: str, args: tuple,
                                if cycles_ms else "not measured")
     sass = entry["sass"]
     check("error" not in sass, f"{name} {mode}: no SASS ({sass})")
-    if "staged" in sass["kernel"]:
+    staged = "staged" in sass["kernel"]
+    if staged and name == "probe_gather2d":   # a ring of several blocks
         group = module.STAGE_BYTES // (atlas.numel() * 4 // module.NBLK)
         need, kind = loads * module.STAGED_PIXELS * group, "shared"
-    else:
-        need, kind = loads * _probe.UNROLL, "global"
+    else:   # fold_chunk's steps, from L1 or the packed fetch's one block
+        need, kind = loads * _probe.UNROLL, "shared" if staged else "global"
     check(sass[f"most_{kind}_loads_a_loop"] >= need,
           f"{name} {mode}: its main loop holds fewer than {need} {kind} "
           f"loads, {loads} an iteration times the iterations it covers "
@@ -906,20 +935,52 @@ def probes_phase(torch, parent: str | None = None) -> list:
 
     # The dynamic grid's launch is a few microseconds, shorter than the
     # wrapper's host work, so its device time comes from the profiler's
-    # trace of DYNAMIC_CALLS back-to-back calls at each count; the trace
-    # also shows the calls copy nothing to the host.
-    device_ms = {}
-    for n, args in full["probe_dynamic_grid"].items():
-        prof = device_busy(torch, lambda: [probe_dynamic_grid.probe_dynamic_grid(
-            *args) for _ in range(DYNAMIC_CALLS)])
-        us = sum(v for k, v in prof["per_kernel"].items()
-                 if PROBE_FAMILIES["probe_dynamic_grid"][0] in k)
-        device_ms[n] = us / DYNAMIC_CALLS / 1e3 if us else "not measured"
-        print(f"profile probe_dynamic_grid nc={n}: {device_ms[n]} ms of device "
-              f"time per launch, device-to-host copies {prof['d2h']}, scalar "
-              f"reads {prof['scalar_reads']}", flush=True)
+    # trace of DYNAMIC_CALLS back-to-back calls at each count, nc = 0 (no
+    # copy: the launch's fixed cost) included: the median of the launches'
+    # durations (late in a long run the trace kept 78-89 of 100 launches'
+    # events, so a sum over the window undercounts). The trace also shows
+    # the calls copy nothing to the host.
+    # With a parent tree, each count in turns parent, this, this, parent.
+    grids = {"this": probe_dynamic_grid.probe_dynamic_grid}
+    if parent:
+        grids["parent"] = load_parent(
+            parent, "tools.probe_dynamic_grid").probe_dynamic_grid
+
+    def grid_launch_us(who, args, n):
+        prof = device_busy(torch, lambda: [grids[who](*args)
+                                           for _ in range(DYNAMIC_CALLS)])
         check(prof["d2h"] == 0 and prof["scalar_reads"] == 0,
-              f"probe_dynamic_grid nc={n}: the calls copied to the host")
+              f"probe_dynamic_grid ({who}) nc={n}: the calls copied to the "
+              f"host ({prof['d2h']} copies, {prof['scalar_reads']} scalar "
+              "reads)")
+        return [us for k, v in prof["durations"].items()
+                if PROBE_FAMILIES["probe_dynamic_grid"][0] in k for us in v]
+
+    device_ms, grid_ab = {}, {}
+    for n in PROBE_CHUNKS:
+        args = (tab, hbm, count(n))
+        turns = ("parent", "this", "this", "parent") if parent else ("this",)
+        spans = {who: [] for who in grids}
+        for who in turns:
+            spans[who] += grid_launch_us(who, args, n)
+        med = {who: statistics.median(v) / 1e3 if v else "not measured"
+               for who, v in spans.items()}
+        device_ms[n] = med["this"]
+        if parent:
+            grid_ab[n] = med
+        print(f"profile probe_dynamic_grid nc={n}: {device_ms[n]} ms of device "
+              f"time per launch (median of {len(spans['this'])} launches, "
+              f"quartiles {quartiles_us(spans['this'])} µs), no "
+              "device-to-host copy or scalar read"
+              + (f"; A/B vs parent {json.dumps(grid_ab[n])}, the parent's "
+                 f"quartiles {quartiles_us(spans['parent'])} µs"
+                 if parent else ""), flush=True)
+    if parent:
+        nc = probe_dynamic_grid.NCMAX
+        check(all(isinstance(v, float) for v in grid_ab[nc].values())
+              and grid_ab[nc]["this"] < grid_ab[nc]["parent"],
+              f"probe_dynamic_grid nc={nc}: device time {grid_ab[nc]} is not "
+              "below the parent's")
 
     sass = sass_loops(kernels.library_path(kernels.PROBES))
     works = {"probe_gather2d": lambda m, a: probe_gather2d.work(m, a[1], a[2], a[-1]),
@@ -977,6 +1038,12 @@ def probes_phase(torch, parent: str | None = None) -> list:
             if name in CHUNKED:
                 floors[name, mode] = chunked_checks(entry, name, module, mode,
                                                     args, ab, sms, clock_hz)
+            if name == "probe_dynamic_grid" and mode in grid_ab:
+                entry["this_ms_ab"] = grid_ab[mode]["this"]
+                entry["parent_ms"] = grid_ab[mode]["parent"]
+                if all(isinstance(v, float) for v in grid_ab[mode].values()):
+                    entry["speedup_vs_parent"] = (entry["parent_ms"]
+                                                  / entry["this_ms_ab"])
             modes.append(entry)
         main = next(e for e in modes if e["mode"] == main_mode[name])
         rows.append({
@@ -991,9 +1058,16 @@ def probes_phase(torch, parent: str | None = None) -> list:
             "bound_note": "int32 lane ops counted at the fp32 lane rate "
                           "(an optimistic peak)",
             "library_ms": None, "modes": modes})
-        if name in CHUNKED:
+        if name in CHUNKED or name == "probe_dynamic_grid":
             rows[-1]["parent_ms_same_call"] = main.get("parent_ms",
                                                        "not measured")
+        if name == "probe_dynamic_grid":   # nc = 0: the launch, no copy
+            rows[-1]["fixed_cost_ms"] = device_ms[0]
+            if 0 in grid_ab:
+                rows[-1]["parent_fixed_cost_ms"] = grid_ab[0]["parent"]
+            print(f"probe probe_dynamic_grid: fixed cost (nc = 0, no copy) "
+                  f"{device_ms[0]} ms of device time a launch, bound at nc = "
+                  f"{probe_dynamic_grid.NCMAX} {main['bound_ms']} ms", flush=True)
         for e in modes:
             print(f"probe {name} {e['mode']}: {e['ms']} ms, ns/iter "
                   f"{e.get('ns_per_iter', '-')} (net "

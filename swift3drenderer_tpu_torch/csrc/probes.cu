@@ -4,22 +4,21 @@
 // tools/ (the TPU kernels below); swift3drenderer_tpu_torch/tools/ holds
 // their wrappers, plain PyTorch versions and entry points.
 //
-// Launch shape. probe_gather2d and fetch_microbench fold their iteration
-// axis with XOR or OR, which on int32 are exact, associative and commutative,
-// so the axis is cut into contiguous chunks of the global counter that run on
-// blocks of their own: the grid is (row groups) x (chunks), the chunk count
-// chosen by the Python wrapper (tools/_probe.py, chunk_plan) to give the card
-// several waves of resident blocks. A thread folds its pixels' iterations of
-// the chunk into partials, and the partials meet in the output with one
-// integer atomic a pixel, on an output the entry point zeroes first
-// (cudaMemsetAsync): the same bits in any order, one launch a call, nothing
-// read on the host. A probe then prices its pattern with the whole card busy
-// (L1 or shared-memory wavefronts, bulk copies or int32 issue, by mode), not
-// one warp's latency. probe_packed_fetch and probe_dynamic_grid keep the TPU
-// probe's shape: one block per output row running the whole loop with
-// `#pragma unroll 1`, so they measure one iteration's latency and stay far
-// above a bound that counts their work (the bytes, or their lane operations
-// at the card's fp32 lane rate).
+// Launch shape. probe_gather2d, probe_packed_fetch and fetch_microbench fold
+// their iteration axis with XOR or OR, which on int32 are exact, associative
+// and commutative, so the axis is cut into contiguous chunks of the global
+// counter that run on blocks of their own: the grid is (row groups) x
+// (chunks), the chunk count chosen by the Python wrapper (tools/_probe.py,
+// chunk_plan) to give the card several waves of resident blocks. A thread
+// folds its pixels' iterations of the chunk into partials, and the partials
+// meet in the output with one integer atomic a pixel, on an output the entry
+// point zeroes first (cudaMemsetAsync): the same bits in any order, one launch
+// a call, nothing read on the host. A probe then prices its pattern with the
+// whole card busy (L1 or shared-memory wavefronts, bulk copies or int32
+// issue, by mode), not one warp's latency. probe_dynamic_grid keeps the TPU
+// probe's grid of one block a tile, but issues all of a tile's bulk copies at
+// once and waits for them once, so its time is one copy's round trip and the
+// launch, whatever the count.
 //
 // Each mode is a template instance and keeps its own access pattern as the
 // card sees it: the same loads, at the same lanes and rows, from global
@@ -42,6 +41,8 @@ namespace {
 
 constexpr int kLanes = 128;   // a TPU vreg row: one block's threads
 constexpr int kBlocks = 64;   // atlas blocks a fetch probe cycles through
+constexpr int kRowWords = 8 * kLanes;   // an (8, 128) block of int32
+constexpr uint32_t kRowBytes = kRowWords * sizeof(int);
 
 // The TPU probes' 3-level select tree over a block's eight rows: bit 0 of
 // `r` picks within pairs, bit 1 within quads, bit 2 the half.
@@ -79,12 +80,17 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
-// Copy ``bytes`` (a multiple of 16, both ends 16-byte aligned) from global
-// to shared memory; the copy's completion completes the phase of ``bar``.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
+// Arrive on ``bar`` and add ``bytes`` to the transfer its phase waits for.
+__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Copy ``bytes`` (a multiple of 16, both ends 16-byte aligned) from global
+// to shared memory, counting them on ``bar`` as they land; the arrival that
+// expects them is the caller's.
+__device__ __forceinline__ void bulk_copy_tx(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];"
@@ -92,15 +98,24 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// The chunk loop of the redesigned probes' L1 path (fetch_microbench,
-// probe_gather2d's sub8). A block of the grid (rows, chunks) folds
-// iterations [lo, lo + n) of the global counter, n = min(chunk, iters - lo)
-// (0 in the one block of an empty call), with op over body(it): kUnroll
-// iterations a step into kUnroll accumulators, so their loads are in
-// flight together, then the ragged rest. The step loop stays
+// One copy that completes the phase of ``bar`` (initialised for one
+// arrival) when it has landed.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  bar_arrive_tx(bar, bytes);
+  bulk_copy_tx(dst, src, bytes, bar);
+}
+
+// The chunk loop of fetch_microbench, probe_packed_fetch and probe_gather2d's
+// sub8 (a body that reads L1 or one block in shared memory). A block of the
+// grid (rows, chunks) folds iterations [lo, lo + n) of the global counter,
+// n = min(chunk, iters - lo) (0 in the one block of an empty call), with op
+// over body(it): kUnroll iterations a step into kUnroll accumulators, so
+// their loads are in flight together, then the ragged rest. The step loop stays
 // rolled (`#pragma unroll 1`): kUnroll < 64 iterations a step visit kUnroll
-// distinct atlas blocks, so no two loads of a step share an address and
-// nvcc cannot merge them (an XOR of a load with itself would cancel both).
+// distinct atlas blocks (probe_packed_fetch: lanes shifted by it & mix, a
+// runtime value), so nvcc cannot prove two loads of a step share an address
+// and merge them (an XOR of a load with itself would cancel both).
 constexpr int kUnroll = 4;   // tools/_probe.py UNROLL
 
 template <class Body, class Op>
@@ -275,55 +290,113 @@ __global__ void __launch_bounds__(kStagedThreads) probe_gather2d_staged_kernel(
 // ---------------------------------------------------------------------------
 // probe_packed_fetch: replaces tools/probe_packed_fetch.py::run (:102,
 // pl.pallas_call :103), kernel make_kernel (:51). OR-accumulate over iters,
-// at lane (ln + (it & mix)) & 127 of one (8, 128) block. Bound: lane
-// operations, ~10-45 a pixel-iteration.
+// at lane (ln + (it & mix)) & 127 of one (8, 128) block, it the global
+// counter. The design: probe_gather2d's, the iterations spread over the
+// whole card by fold_chunk and the partials ORed into the zeroed output with
+// atomicOr. On the TPU the whole block sits in VMEM (the pallas_call has no
+// grid); its counterpart on the card is shared memory: a staged mode's block
+// of 128 threads copies the 4 KB block there once (one bulk copy on an
+// mbarrier) and reads every iteration from it, a warp's load costing its
+// bank conflicts (gather8 ~21.6 wavefronts an iteration over eight loads,
+// packed4 ~16.2 over six). Through L1 (__ldg) the same load costs the 128-byte
+// lines it touches (32 and 24 an iteration). On the H100 both builds take
+// ~2.45 SM cycles a warp-wide load, so each mode's time follows its loads;
+// each takes the build that measured faster (tools/probe_variants.py):
+// gather8 staged (by 0.3 %), packed4 and packed4sel through L1 (by 1.7 %);
+// empty has no load and is held by int32 issue. The table's bound (lane
+// operations at the fp32 rate) is below all of them.
 
 enum PackedMode { kGather8 = 0, kPacked4 = 1, kPacked4Sel = 2,
                   kPackedEmpty = 3 };
 
+// Which modes read the block from a copy in shared memory (bit m for mode
+// m); the others read it through L1 (__ldg).
+constexpr unsigned kStagedPackedFetch = 0x1;   // gather8
+
+// One iteration's value for a pixel whose row is ``row``, at lane ``ln0`` of
+// the block ``blk``, each word read with ``load``.
+template <int kMode, class Load>
+__device__ __forceinline__ int packed_texel(const int* blk, int row, int ln0,
+                                            Load load) {
+  if constexpr (kMode == kGather8) {
+    int g[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) g[r] = load(blk + r * kLanes + ln0);
+    return select_tree(g, row);
+  } else if constexpr (kMode == kPacked4 || kMode == kPacked4Sel) {
+    // blk is pack_block's [R0 R1 G0 G1 B0 B1 0 0]: two loads a channel,
+    // the quad word picked per pixel (row >> 2), then its byte.
+    const bool q = (row & 4) != 0;
+    const int sh8 = (row & 3) << 3;   // byte shift within the quad word
+    int packed = 0;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const int q0 = load(blk + (2 * ch) * kLanes + ln0);
+      const int q1 = load(blk + (2 * ch + 1) * kLanes + ln0);
+      const int g = q ? q1 : q0;
+      int byte;
+      if constexpr (kMode == kPacked4) {
+        byte = (g >> sh8) & 0xFF;
+      } else {
+        const int b0 = (row & 1) ? g >> 8 : g;
+        byte = ((row & 2) ? b0 >> 16 : b0) & 0xFF;
+      }
+      packed |= byte << (16 - 8 * ch);
+    }
+    return packed;
+  } else {
+    return ln0;   // the loop's cost
+  }
+}
+
+// Through L1: a block of 128 threads, one pixel of one row each.
 template <int kMode>
 __global__ void __launch_bounds__(kLanes) probe_packed_fetch_kernel(
     const int* __restrict__ blk, const int* __restrict__ row_in,
-    const int* __restrict__ ln_in, int* __restrict__ out, int mix,
-    int iters) {
+    const int* __restrict__ ln_in, int* __restrict__ out, int iters,
+    int chunk, int mix) {
   const int i = blockIdx.x * kLanes + threadIdx.x;
   const int row = row_in[i];   // [0, 8)
   const int ln = ln_in[i];     // [0, 128)
-  const bool q = (row & 4) != 0;      // quad-word select (row >> 2)
-  const int sh8 = (row & 3) << 3;     // byte shift within the quad word
-  int acc = 0;
-#pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    const int ln0 = (ln + (it & mix)) & 127;
-    if constexpr (kMode == kGather8) {
-      int g[8];
-#pragma unroll
-      for (int r = 0; r < 8; ++r) g[r] = __ldg(blk + r * kLanes + ln0);
-      acc |= select_tree(g, row);
-    } else if constexpr (kMode == kPacked4 || kMode == kPacked4Sel) {
-      // blk is pack_block's [R0 R1 G0 G1 B0 B1 0 0]: two loads a channel,
-      // the quad word picked per pixel, then its byte.
-      int packed = 0;
-#pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const int q0 = __ldg(blk + (2 * ch) * kLanes + ln0);
-        const int q1 = __ldg(blk + (2 * ch + 1) * kLanes + ln0);
-        const int g = q ? q1 : q0;
-        int byte;
-        if constexpr (kMode == kPacked4) {
-          byte = (g >> sh8) & 0xFF;
-        } else {
-          const int b0 = (row & 1) ? g >> 8 : g;
-          byte = ((row & 2) ? b0 >> 16 : b0) & 0xFF;
-        }
-        packed |= byte << (16 - 8 * ch);
-      }
-      acc |= packed;
-    } else {
-      acc |= ln0;   // loop cost
-    }
+  const int part = fold_chunk(
+      iters, chunk,
+      [=](int it) {
+        return packed_texel<kMode>(blk, row, (ln + (it & mix)) & (kLanes - 1),
+                                   [](const int* p) { return __ldg(p); });
+      },
+      [](int a, int v) { return a | v; });
+  atomicOr(out + i, part);
+}
+
+// Staged: the same, every iteration reading the block's copy in shared
+// memory, made once a block by one bulk copy.
+template <int kMode>
+__global__ void __launch_bounds__(kLanes) probe_packed_fetch_staged_kernel(
+    const int* __restrict__ blk, const int* __restrict__ row_in,
+    const int* __restrict__ ln_in, int* __restrict__ out, int iters,
+    int chunk, int mix) {
+  __shared__ __align__(128) int block[kRowWords];
+  __shared__ __align__(8) uint64_t full;
+  const int i = blockIdx.x * kLanes + threadIdx.x;
+  const int row = row_in[i];
+  const int ln = ln_in[i];
+  if (threadIdx.x == 0) {
+    bar_init(&full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bulk_copy(block, blk, kRowBytes, &full);
   }
-  out[i] = acc;
+  __syncthreads();   // the barrier is initialised before anyone waits on it
+  bar_wait(&full, 0);
+  const int* staged = block;
+  const int part = fold_chunk(
+      iters, chunk,
+      [=](int it) {
+        return packed_texel<kMode>(staged, row,
+                                   (ln + (it & mix)) & (kLanes - 1),
+                                   [](const int* p) { return *p; });
+      },
+      [](int a, int v) { return a | v; });
+  atomicOr(out + i, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -396,59 +469,54 @@ __global__ void __launch_bounds__(kLanes) fetch_microbench_kernel(
 // ---------------------------------------------------------------------------
 // probe_dynamic_grid: replaces tools/probe_dynamic_grid.py::run (:51,
 // pl.pallas_call :52), kernel `kernel` (:34). The TPU grid (NT, nc) with a
-// traced nc becomes one block per tile t whose loop over chunks c < nc reads
-// nc from device memory (the host never reads it); each step copies hbm row
-// t * kNCMax + c (4 KB) into shared memory with Hopper's 1-D bulk copy
-// (cp.async.bulk, completion counted on an mbarrier: the counterpart of
-// pltpu.make_async_copy and its DMA semaphore), waits for it, and adds
-// tab[c * 8, 0] + (float)row[0] to a register accumulator from 0 in the order
-// c = 0, 1, ... The (8, 128) output block is stored once: on the TPU it is
-// revisited across c and zeroed under pl.when(c == 0), but blocks run in no
-// order on the card, so the chunk axis is the loop inside the block. nc is
-// clamped to [0, kNCMax], so nothing outside the arrays is read. Bound: the
-// bytes (at most 48 KB of rows, 12 KB out); the time is the copies' latency.
+// traced nc becomes one block per tile t that reads nc from device memory
+// (the host never reads it) and clamps it to [0, kNCMax], so nothing outside
+// the arrays is read. Thread 0 then issues the copies of hbm rows
+// t * kNCMax + c for every c < nc at once, each 4 KB into its own slot of a
+// kNCMax-slot buffer in shared memory, with Hopper's 1-D bulk copy
+// (cp.async.bulk), their bytes counted on one mbarrier that one arrival
+// expects in full (the counterpart of pltpu.make_async_copy and its DMA
+// semaphore). While the copies fly every thread loads its tab[c * 8, 0]; the
+// block waits once, then adds tab[c * 8, 0] + (float)row_c[0] to a register
+// accumulator from 0 in the order c = 0, 1, ... and stores its output word.
+// The (8, 128) output block is stored once: on the TPU it is revisited
+// across c and zeroed under pl.when(c == 0), but blocks run in no order on
+// the card, so the chunk axis lives inside the block. Bound: the bytes (at
+// most 48 KB of rows, 12 KB out), a few ns, below any launch; the time is
+// the launch and one copy's round trip, and nc = 0 (no copy) its fixed cost.
 
 constexpr int kNT = 3;
 constexpr int kNCMax = 4;
-constexpr int kRowWords = 8 * kLanes;
-constexpr uint32_t kRowBytes = kRowWords * sizeof(int);
 
 __global__ void __launch_bounds__(kRowWords) probe_dynamic_grid_kernel(
     const float* __restrict__ tab, const int* __restrict__ hbm,
     const int* __restrict__ nc_in, float* __restrict__ out) {
-  __shared__ __align__(128) int row[kRowWords];
+  __shared__ __align__(128) int rows[kNCMax * kRowWords];
   __shared__ __align__(8) uint64_t bar;
   const int t = blockIdx.x;
   const int nc = min(max(*nc_in, 0), kNCMax);
-  const uint32_t bar_a = smem_addr(&bar);
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(bar_a)
-                 : "memory");
+    bar_init(&bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  float acc = 0.0f;
-#pragma unroll 1
-  for (int c = 0; c < nc; ++c) {
-    if (threadIdx.x == 0) {
-      const int* src = hbm + (t * kNCMax + c) * kRowWords;
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                   :: "r"(bar_a), "r"(kRowBytes) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];"
-          :: "r"(smem_addr(row)), "l"(src), "r"(kRowBytes), "r"(bar_a)
-          : "memory");
+    if (nc > 0) {
+      // One arrival expects every copy's bytes, so the phase cannot
+      // complete before the last copy is issued and has landed.
+      bar_arrive_tx(&bar, nc * kRowBytes);
+      for (int c = 0; c < nc; ++c)
+        bulk_copy_tx(rows + c * kRowWords,
+                     hbm + (t * kNCMax + c) * kRowWords, kRowBytes, &bar);
     }
-    // Wait for phase c of the barrier: the copy of step c has landed.
-    asm volatile(
-        "{\n\t.reg .pred done;\n"
-        "WAIT:\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n\t"
-        "@!done bra WAIT;\n}"
-        :: "r"(bar_a), "r"(static_cast<uint32_t>(c & 1)) : "memory");
-    acc += tab[c * kRowWords] + static_cast<float>(row[0]);
-    __syncthreads();   // every thread has read row before the next copy
+  }
+  float tv[kNCMax];
+#pragma unroll
+  for (int c = 0; c < kNCMax; ++c) tv[c] = c < nc ? tab[c * kRowWords] : 0.0f;
+  __syncthreads();   // the barrier is initialised before anyone waits on it
+  float acc = 0.0f;
+  if (nc > 0) {
+    bar_wait(&bar, 0);
+#pragma unroll
+    for (int c = 0; c < kNCMax; ++c)
+      if (c < nc) acc += tv[c] + static_cast<float>(rows[c * kRowWords]);
   }
   out[t * kRowWords + threadIdx.x] = acc;
 }
@@ -457,26 +525,36 @@ int status() { return static_cast<int>(cudaGetLastError()); }
 
 int bad_mode() { return static_cast<int>(cudaErrorInvalidValue); }
 
-// The launch of a redesigned probe: zero the (rows, 128) output, then one
-// block per ``rows_a_block`` rows and chunk, at least one chunk (an empty
-// call launches one block a row group that folds nothing), so that every
-// call is one launch.
+// The launch of a chunked probe: zero the (rows, 128) output, then one
+// block per ``shape.rows_a_block`` rows and chunk, at least one chunk (an
+// empty call launches one block a row group that folds nothing), so that
+// every call is one launch. A kernel takes (atlas or block, two per-pixel
+// inputs, out, iters, chunk), then the probe's own ``extra`` arguments.
 using FoldKernel = void (*)(const int*, const int*, const int*, int*, int,
                            int);
 
-int fold_launch(FoldKernel kernel, const void* atlas, const void* a,
-                const void* b, void* out, int rows, int iters, int chunks,
-                int chunk, void* stream, int rows_a_block = 1,
-                int threads = kLanes, int smem = 0) {
+struct FoldShape {
+  int rows_a_block = 1;
+  int threads = kLanes;
+  int smem = 0;   // dynamic shared memory, bytes
+};
+
+template <class... Extra>
+int fold_launch(void (*kernel)(const int*, const int*, const int*, int*, int,
+                               int, Extra...),
+                const void* atlas, const void* a, const void* b, void* out,
+                int rows, int iters, int chunks, int chunk, void* stream,
+                FoldShape shape, Extra... extra) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (rows % rows_a_block) return bad_mode();
+  if (rows % shape.rows_a_block) return bad_mode();
   const cudaError_t err =
       cudaMemsetAsync(out, 0, sizeof(int) * rows * kLanes, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(rows / rows_a_block, chunks > 1 ? chunks : 1), threads, smem,
-           s>>>(static_cast<const int*>(atlas), static_cast<const int*>(a),
-                static_cast<const int*>(b), static_cast<int*>(out), iters,
-                chunk);
+  kernel<<<dim3(rows / shape.rows_a_block, chunks > 1 ? chunks : 1),
+           shape.threads, shape.smem, s>>>(
+      static_cast<const int*>(atlas), static_cast<const int*>(a),
+      static_cast<const int*>(b), static_cast<int*>(out), iters, chunk,
+      extra...);
   return status();
 }
 
@@ -506,11 +584,25 @@ int gather2d_launch(const void* atlas, const void* rel, const void* ln,
                                    kRingBytes, smem_set))
       return err;
     return fold_launch(probe_gather2d_staged_kernel<kMode>, atlas, rel, ln,
-                       out, rows, iters, chunks, chunk, stream, kStagedRows,
-                       kStagedThreads, kRingBytes);
+                       out, rows, iters, chunks, chunk, stream,
+                       FoldShape{kStagedRows, kStagedThreads, kRingBytes});
   } else {
     return fold_launch(probe_gather2d_kernel<kMode>, atlas, rel, ln, out,
-                       rows, iters, chunks, chunk, stream);
+                       rows, iters, chunks, chunk, stream, FoldShape{});
+  }
+}
+
+template <int kMode>
+int packed_launch(const void* blk, const void* row, const void* ln, void* out,
+                  int rows, int mix, int iters, int chunks, int chunk,
+                  void* stream) {
+  if constexpr ((kStagedPackedFetch >> kMode) & 1) {
+    return fold_launch(probe_packed_fetch_staged_kernel<kMode>, blk, row, ln,
+                       out, rows, iters, chunks, chunk, stream, FoldShape{},
+                       mix);
+  } else {
+    return fold_launch(probe_packed_fetch_kernel<kMode>, blk, row, ln, out,
+                       rows, iters, chunks, chunk, stream, FoldShape{}, mix);
   }
 }
 
@@ -519,11 +611,9 @@ int gather2d_launch(const void* atlas, const void* rel, const void* ln,
 // Each entry point launches its kernel on ``stream`` and returns
 // cudaGetLastError() (0 when the launch was accepted), or
 // cudaErrorInvalidValue for a mode it does not know. The fetch probes take
-// their (rows, 128) int32 inputs and output; ``mode`` is the index in the
-// Python module's MODES. probe_gather2d and fetch_microbench also take the
-// chunk plan (``chunks`` blocks a row of ``chunk`` iterations, the last
-// ragged) and zero their output first; probe_packed_fetch runs one
-// 128-thread block per row.
+// their (rows, 128) int32 inputs and output, ``mode`` the index in the
+// Python module's MODES, and the chunk plan (``chunks`` blocks a row of
+// ``chunk`` iterations, the last ragged), and zero their output first.
 
 extern "C" int probe_gather2d(int mode, const void* atlas, const void* rel,
                               const void* ln, void* out, int rows, int iters,
@@ -542,33 +632,17 @@ extern "C" int probe_gather2d(int mode, const void* atlas, const void* rel,
 
 extern "C" int probe_packed_fetch(int mode, const void* blk, const void* row,
                                   const void* ln, void* out, int rows,
-                                  int mix, int iters, void* stream) {
-  const auto b = static_cast<const int*>(blk);
-  const auto r = static_cast<const int*>(row);
-  const auto l = static_cast<const int*>(ln);
-  const auto o = static_cast<int*>(out);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kGather8:
-      probe_packed_fetch_kernel<kGather8><<<rows, kLanes, 0, s>>>(
-          b, r, l, o, mix, iters);
-      break;
-    case kPacked4:
-      probe_packed_fetch_kernel<kPacked4><<<rows, kLanes, 0, s>>>(
-          b, r, l, o, mix, iters);
-      break;
-    case kPacked4Sel:
-      probe_packed_fetch_kernel<kPacked4Sel><<<rows, kLanes, 0, s>>>(
-          b, r, l, o, mix, iters);
-      break;
-    case kPackedEmpty:
-      probe_packed_fetch_kernel<kPackedEmpty><<<rows, kLanes, 0, s>>>(
-          b, r, l, o, mix, iters);
-      break;
-    default:
-      return bad_mode();
-  }
-  return status();
+                                  int mix, int iters, int chunks, int chunk,
+                                  void* stream) {
+  using Launch = int (*)(const void*, const void*, const void*, void*, int,
+                         int, int, int, int, void*);
+  const Launch launches[] = {
+      packed_launch<kGather8>, packed_launch<kPacked4>,
+      packed_launch<kPacked4Sel>, packed_launch<kPackedEmpty>};
+  if (mode < 0 || mode >= int(sizeof launches / sizeof launches[0]))
+    return bad_mode();
+  return launches[mode](blk, row, ln, out, rows, mix, iters, chunks, chunk,
+                        stream);
 }
 
 extern "C" int fetch_microbench(int mode, const void* atlas, const void* key,
@@ -582,7 +656,7 @@ extern "C" int fetch_microbench(int mode, const void* atlas, const void* key,
   if (mode < 0 || mode >= int(sizeof kernels / sizeof kernels[0]))
     return bad_mode();
   return fold_launch(kernels[mode], atlas, key, ln, out, rows, iters, chunks,
-                     chunk, stream);
+                     chunk, stream, FoldShape{});
 }
 
 // tab f32 (kNCMax * 8, 128), hbm i32 (kNT * kNCMax, 8, 128), nc one i32 in

@@ -50,12 +50,21 @@ def kernel_device(wrapper, t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def check_aligned(t: torch.Tensor, name: str, align: int = 16) -> None:
+    """Raise unless ``t`` starts on ``align`` bytes, as a bulk copy of it
+    needs (the address alone: no host read)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on {align} bytes for its bulk "
+                         f"copy, got address {t.data_ptr():#x}")
+
+
 def check_iters(iters: int, limit: int = 2 ** 31) -> None:
     if not 0 <= iters < limit:
         raise ValueError(f"iters must be in [0, {limit}), got {iters}")
 
 
-# The chunk plan of probe_gather2d and fetch_microbench (csrc/probes.cu):
+# The chunk plan of probe_gather2d, probe_packed_fetch and fetch_microbench
+# (csrc/probes.cu):
 # the iteration axis [0, iters) is cut into chunks of MIN_CHUNK or more
 # iterations, enough for WAVES waves of RESIDENT 128-thread blocks on each SM
 # of the card, each a multiple of UNROLL (fold_chunk's kUnroll; it also
@@ -108,10 +117,13 @@ def bank_wavefronts(words: torch.Tensor) -> int:
     ``words``, a row of 32 a warp: for each load, the most distinct words
     it reads from one of the 32 banks (a word's bank is its offset mod 32;
     lanes reading one word share it)."""
-    total = 0
-    for warp in words.reshape(-1, 32).long():
-        total += int(torch.bincount(warp.unique() % 32, minlength=32).max())
-    return total
+    warps = words.reshape(-1, 32).long().sort(dim=1).values
+    first = torch.ones_like(warps, dtype=torch.bool)
+    first[:, 1:] = warps[:, 1:] != warps[:, :-1]   # each distinct word once
+    per_bank = torch.zeros((warps.shape[0], 32), dtype=torch.long,
+                           device=warps.device)
+    per_bank.scatter_add_(1, warps % 32, first.long())
+    return int(per_bank.max(dim=1).values.sum())
 
 
 def time_ms(fn, device: torch.device, reps: int = 5) -> float:

@@ -7,9 +7,12 @@ float(hbm[t * NCMAX + c, 0, 0])`` into its (8, 128) output block. ``nc`` is a
 0-d int32 tensor on the device: the kernel reads it, the host never does, so
 a live count computed on the card can bound a loop without a device-to-host
 copy. On the TPU the chunks are a grid axis of traced length and the output
-block is revisited; on the card they are a loop inside each tile's block
-(``csrc/probes.cu``, ``probe_dynamic_grid_kernel``), whose hbm rows arrive
-by Hopper's bulk copy (``cp.async.bulk`` completing on an mbarrier).
+block is revisited; on the card they live inside each tile's block
+(``csrc/probes.cu``, ``probe_dynamic_grid_kernel``), which issues the bulk
+copies (Hopper's ``cp.async.bulk``) of all its ``nc`` hbm rows at once into
+slots of one shared-memory buffer, their bytes counted on one mbarrier, and
+waits once: a call costs its launch and one copy's round trip, whatever the
+count; at ``nc = 0`` (no copy) it costs the launch alone.
 
     python -m swift3drenderer_tpu_torch.tools.probe_dynamic_grid [--device cpu]
 """
@@ -74,7 +77,8 @@ def probe_dynamic_grid(tab: torch.Tensor, hbm: torch.Tensor,
     tensor on the same device, clamped to [0, NCMAX] and never read by the
     host. Returns f32 (NT, 8, 128). CPU tensors take the plain version; CUDA
     tensors launch ``probe_dynamic_grid_kernel``, counted in
-    ``probe_dynamic_grid.launches``.
+    ``probe_dynamic_grid.launches``; hbm must then start on 16 bytes (its
+    rows' bulk copies).
     """
     dev = tab.device
     _probe.check(tab, "tab", torch.float32, (NCMAX * 8, 128), dev)
@@ -82,6 +86,7 @@ def probe_dynamic_grid(tab: torch.Tensor, hbm: torch.Tensor,
     _probe.check(nc, "nc", torch.int32, (), dev)
     if not _probe.kernel_device(probe_dynamic_grid, tab):
         return probe_dynamic_grid_plain(tab, hbm, nc)
+    _probe.check_aligned(hbm, "hbm")
     out = torch.empty((NT, 8, 128), dtype=torch.float32, device=dev)
     P = _probe.P
     _probe.launch(probe_dynamic_grid, "probe_dynamic_grid", (P, P, P, P),

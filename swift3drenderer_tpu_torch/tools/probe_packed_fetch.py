@@ -15,8 +15,15 @@ block:
 
 At ``mix = 0, iters = 1`` the three fetches give ``block[row, ln]``; at
 ``mix = 127`` the lane varies with the loop counter, so the body cannot be
-hoisted (the timed setting). Kernel: ``csrc/probes.cu``,
-``probe_packed_fetch_kernel``.
+hoisted (the timed setting). Kernel: ``csrc/probes.cu``: gather8 reads a
+copy of the block in shared memory that each block of the grid makes once
+(``probe_packed_fetch_staged_kernel``; on the TPU the block sits in VMEM),
+the packed modes read it through L1 and empty has no load
+(``probe_packed_fetch_kernel``): each mode's faster build on the H100.
+The card runs the iteration axis in chunks on every SM at once
+(``_probe.chunk_plan``) and ORs the partials, so ns an iteration (the
+launch's ms over ``ITERS``, as the TPU tool prints it) is the whole strip's
+cost an iteration at full occupancy, not one thread's latency.
 
     python -m swift3drenderer_tpu_torch.tools.probe_packed_fetch [--device cpu]
 """
@@ -141,8 +148,10 @@ def probe_packed_fetch(mode: str, blk: torch.Tensor, row: torch.Tensor,
     int32 (16, 128) in [0, 8) and ln int32 (16, 128) in [0, 128), not checked
     on the card (a host read); mix in [0, 127]. Returns int32 (16, 128). CPU
     tensors take the plain version; CUDA tensors launch
-    ``probe_packed_fetch_kernel<mode>``, counted in
-    ``probe_packed_fetch.launches``.
+    ``probe_packed_fetch_staged_kernel<mode>`` (gather8) or
+    ``probe_packed_fetch_kernel<mode>`` (the others) over the chunks of
+    ``_probe.chunk_plan``, counted in ``probe_packed_fetch.launches``; blk
+    must then start on 16 bytes (gather8's bulk copy of it).
     """
     m = MODES.index(mode)
     dev = row.device
@@ -154,12 +163,14 @@ def probe_packed_fetch(mode: str, blk: torch.Tensor, row: torch.Tensor,
     _probe.check_iters(iters)
     if not _probe.kernel_device(probe_packed_fetch, row):
         return probe_packed_fetch_plain(mode, blk, row, ln, mix, iters)
+    _probe.check_aligned(blk, "blk")
+    chunks, chunk = _probe.chunk_plan(iters, SPH, _probe.sm_count(dev.index))
     out = torch.empty((SPH, 128), dtype=torch.int32, device=dev)
     P, I = _probe.P, _probe.I
     _probe.launch(probe_packed_fetch, "probe_packed_fetch",
-                  (I, P, P, P, P, I, I, I),
+                  (I, P, P, P, P, I, I, I, I, I),
                   (m, blk.data_ptr(), row.data_ptr(), ln.data_ptr(),
-                   out.data_ptr(), SPH, mix, iters), dev)
+                   out.data_ptr(), SPH, mix, iters, chunks, chunk), dev)
     return out
 
 
@@ -172,6 +183,16 @@ def work(mode: str, row: torch.Tensor, iters: int):
     pixel-iteration."""
     nbytes = BLOCK_ROWS_READ[mode] * 128 * 4 + 3 * row.numel() * 4
     return nbytes, OPS_PER_ITER[mode] * row.numel() * iters
+
+
+def load_words(mode: str, ln: torch.Tensor, shift: int = 0) -> list:
+    """The word offsets within the block that each of an iteration's loads
+    reads when ``it & mix`` is ``shift``, (16, 128) a load: row r at lane
+    ``(ln + shift) & 127``, rows 0-7 for gather8, 0-5 (two a channel) for
+    the packed modes, none for empty. The access pattern that L1 or shared
+    memory sees."""
+    ln0 = (ln.long().cpu() + shift) & 127
+    return [r * 128 + ln0 for r in range(BLOCK_ROWS_READ[mode])]
 
 
 def main(device: str = "cuda") -> dict:

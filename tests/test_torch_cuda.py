@@ -622,9 +622,9 @@ def test_failed_capture_raises_on_cuda():
 @pytest.mark.parametrize("probe", ["gather2d", "packed_fetch", "fetch_microbench"])
 def test_fetch_probes_match_plain_on_cuda(probe):
     """Every mode of each fetch probe's kernel against its plain version on
-    the card, bit for bit, at small counts (gather2d and fetch_microbench
-    also at 0 and across their chunk length) and the tool's full ITERS; each
-    call is one launch."""
+    the card, bit for bit, at small counts, at 0 and across the chunk length
+    (all three run their iterations in chunks) and the tool's full ITERS;
+    each call is one launch."""
     need_card()
     if probe == "gather2d":
         wrapper, plain, full = pg2.probe_gather2d, pg2.probe_gather2d_plain, pg2.ITERS
@@ -640,9 +640,7 @@ def test_fetch_probes_match_plain_on_cuda(probe):
                                 pfm.fetch_microbench_plain, pfm.ITERS)
         data = pfm.inputs("cuda")
         cases = [(m, *data, ()) for m in pfm.MODES]
-    counts = PROBE_ITERS + (full,)
-    if probe != "packed_fetch":
-        counts += CHUNKED_ITERS
+    counts = PROBE_ITERS + (full,) + CHUNKED_ITERS
     for mode, a, b, c, extra in cases:
         for iters in counts:
             before = wrapper.launches
@@ -654,7 +652,7 @@ def test_fetch_probes_match_plain_on_cuda(probe):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("probe", ["gather2d", "fetch_microbench"])
+@pytest.mark.parametrize("probe", ["gather2d", "fetch_microbench", "packed_fetch"])
 def test_chunked_probes_capture_in_a_graph_on_cuda(probe):
     """One call of each mode of the chunked probes (the output's zeroing and
     the chunked launch) is captured in a CUDA graph, counted as one launch,
@@ -664,6 +662,10 @@ def test_chunked_probes_capture_in_a_graph_on_cuda(probe):
         wrapper, plain, data = (pg2.probe_gather2d, pg2.probe_gather2d_plain,
                                 pg2.inputs("cuda"))
         cases = [(m, *data[m]) for m in pg2.MODES]
+    elif probe == "packed_fetch":
+        wrapper, plain, data = (ppf.probe_packed_fetch,
+                                ppf.probe_packed_fetch_plain, ppf.inputs("cuda"))
+        cases = [(m, *data[m], ppf.TIMED_MIX) for m in ppf.MODES]
     else:
         wrapper, plain, data = (pfm.fetch_microbench,
                                 pfm.fetch_microbench_plain, pfm.inputs("cuda"))
@@ -697,6 +699,32 @@ def test_dynamic_grid_reads_its_count_on_cuda():
         assert torch.equal(got, pdg.probe_dynamic_grid_plain(tab, hbm, count)), nc
         want = pdg.expected(tab.cpu().numpy(), hbm.cpu().numpy(),
                             min(max(nc, 0), pdg.NCMAX))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_dynamic_grid_replays_a_count_rewritten_in_place_on_cuda():
+    """One call captured in a CUDA graph, then the count tensor rewritten in
+    place between replays: each replay runs the loop the count on the card
+    says, with no host read, and equals the plain version (7 clamped)."""
+    need_card()
+    tab, hbm = pdg.inputs("cuda")
+    count = torch.zeros((), dtype=torch.int32, device="cuda")
+    pdg.probe_dynamic_grid(tab, hbm, count)   # loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = pdg.probe_dynamic_grid.launches
+    with torch.cuda.graph(graph):
+        got = pdg.probe_dynamic_grid(tab, hbm, count)
+    assert pdg.probe_dynamic_grid.launches == before + 1
+    for nc in (0, 1, 2, 3, 4, 7, 2):
+        count.fill_(nc)
+        got.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, pdg.probe_dynamic_grid_plain(tab, hbm, count)), nc
+        want = pdg.expected(tab.cpu().numpy(), hbm.cpu().numpy(),
+                            min(nc, pdg.NCMAX))
         np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 

@@ -195,17 +195,45 @@ def fetch_body(mode, atlas, key, ln):
     return body
 
 
+def packed_fetch_body(mode, blk, row, ln, mix):
+    """probe_packed_fetch's iteration ``it`` (the global counter): the texel
+    at lane (ln + (it & mix)) & 127 of the block."""
+    return lambda it: ppf._body(mode, blk, row, (ln + (it & mix)) & 127)
+
+
 @pytest.mark.parametrize("probe,mode", [("gather2d", m) for m in pg2.MODES]
-                         + [("fetch_microbench", m) for m in pfm.MODES])
+                         + [("fetch_microbench", m) for m in pfm.MODES]
+                         + [("packed_fetch", m) for m in ppf.MODES])
 def test_chunk_plan_folds_to_the_oracle(probe, mode):
     if probe == "gather2d":
         atlas, rel, ln = host(*pg2.inputs("cpu")[mode])
-        body, op, rows = gather2d_body(mode, atlas, rel, ln), np.bitwise_xor, pg2.SPH
-        oracle = functools.partial(pg2.expected, mode, atlas, rel, ln)
-    else:
+        folds = [(gather2d_body(mode, atlas, rel, ln), np.bitwise_xor,
+                  functools.partial(pg2.expected, mode, atlas, rel, ln))]
+        rows, full = pg2.SPH, pg2.ITERS
+    elif probe == "fetch_microbench":
         atlas, key, ln = host(*pfm.inputs("cpu"))
-        body, op, rows = fetch_body(mode, atlas, key, ln), np.bitwise_or, pfm.SPH
-        oracle = functools.partial(pfm.expected, mode, atlas, key, ln)
+        folds = [(fetch_body(mode, atlas, key, ln), np.bitwise_or,
+                  functools.partial(pfm.expected, mode, atlas, key, ln))]
+        rows, full = pfm.SPH, pfm.ITERS
+    else:   # at the correctness check's mix and the timed one
+        blk, row, ln = host(*ppf.inputs("cpu")[mode])
+        folds = [(packed_fetch_body(mode, blk, row, ln, mix), np.bitwise_or,
+                  lambda iters, mix=mix: ppf.expected(mode, blk, row, ln, mix,
+                                                      iters))
+                 for mix in (0, ppf.TIMED_MIX)]
+        rows, full = ppf.SPH, ppf.ITERS
+    for body, op, oracle in folds:
+        fold_chunks(body, op, oracle, rows)
+    # At the tool's full count the plan fills the card: WAVES waves of
+    # RESIDENT blocks an SM, give or take one chunk a row.
+    chunks, chunk = _probe.chunk_plan(full, rows, PLAN_SMS)
+    assert (chunks - 1) * chunk < full <= chunks * chunk
+    assert abs(chunks * rows - PLAN_SMS * _probe.RESIDENT * _probe.WAVES) <= rows
+
+
+def fold_chunks(body, op, oracle, rows):
+    """Fold ``body`` over the chunks of the plan at each of PLAN_ITERS as
+    fold_chunk does and hold the result to ``oracle(iters)``."""
     for iters in PLAN_ITERS:
         chunks, chunk = _probe.chunk_plan(iters, rows, PLAN_SMS)
         assert chunk % _probe.UNROLL == 0 and chunk >= _probe.MIN_CHUNK
@@ -224,12 +252,6 @@ def test_chunk_plan_folds_to_the_oracle(probe, mode):
                 acc[0] = op(acc[0], body(it))
             out = op(out, functools.reduce(op, acc))
         np.testing.assert_array_equal(out, oracle(iters), err_msg=str(iters))
-    # At the tool's full count the plan fills the card: WAVES waves of
-    # RESIDENT blocks an SM, give or take one chunk a row.
-    full = pg2.ITERS if probe == "gather2d" else pfm.ITERS
-    chunks, chunk = _probe.chunk_plan(full, rows, PLAN_SMS)
-    assert (chunks - 1) * chunk < full <= chunks * chunk
-    assert abs(chunks * rows - PLAN_SMS * _probe.RESIDENT * _probe.WAVES) <= rows
 
 
 @pytest.mark.parametrize("name", list(probe_variants.VARIANTS))
@@ -257,6 +279,11 @@ def test_probe_constants_are_the_kernels():
     assert consts["kUnroll"] == _probe.UNROLL
     assert consts["kPixels"] == pg2.STAGED_PIXELS
     assert consts["kStageBytes"] == pg2.STAGE_BYTES
+    # The dynamic grid's tiles and chunk capacity (the kernel's grid and its
+    # buffer of kNCMax row slots).
+    assert consts["kNT"] == pdg.NT
+    assert consts["kNCMax"] == pdg.NCMAX
+    assert consts["kLanes"] == 128
 
 
 @pytest.mark.parametrize("words,lines,banks", [
@@ -289,6 +316,41 @@ def test_load_words_are_the_kernels_offsets():
     assert torch.equal(pfm.load_words("full", ln)[7], 7 * 512 + ln.long())
     assert torch.equal(pfm.load_words("loadonly", ln)[0],
                        torch.arange(128).expand(32, 128))
+
+
+@pytest.mark.parametrize("shift", [0, 1, 77, 127])
+def test_packed_fetch_load_words_are_the_kernels_offsets(shift):
+    """probe_packed_fetch's loads at lane shift ``it & mix``: row r at
+    ``(ln + shift) & 127`` (``r * 128 + ln0`` in the block), rows 0-7 for
+    gather8, 0-5 for the packed modes, none for empty."""
+    for mode in ppf.MODES:
+        _, _, ln = ppf.inputs("cpu")[mode]
+        ln0 = (ln.long() + shift) & 127
+        got = ppf.load_words(mode, ln, shift)
+        rows = {"gather8": 8, "packed4": 6, "packed4sel": 6, "empty": 0}[mode]
+        assert len(got) == rows
+        for r, words in enumerate(got):
+            assert torch.equal(words, r * 128 + ln0), (mode, r)
+
+
+def test_bank_wavefronts_match_a_warp_by_warp_count():
+    """The vectorised count equals the count taken warp by warp: for each
+    warp-wide load, the most distinct words one bank serves."""
+    words = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1024, (64, 32))).long()
+    want = sum(int(torch.bincount(w.unique() % 32, minlength=32).max())
+               for w in words)
+    assert _probe.bank_wavefronts(words) == want
+
+
+def test_check_aligned_refuses_a_misaligned_start():
+    """The bulk copies need a 16-byte start: the check reads the address
+    alone."""
+    base = torch.zeros(2048, dtype=torch.int32)
+    _probe.check_aligned(base[:1024], "blk")
+    _probe.check_aligned(base[4:1028], "blk")
+    with pytest.raises(ValueError, match="16 bytes"):
+        _probe.check_aligned(base[1:1025], "blk")
 
 
 def test_dynamic_grid_plain_clamps_the_count():
