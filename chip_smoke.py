@@ -26,7 +26,12 @@ Phases; any failed check raises and the script exits non-zero:
      (G = 1, 4, 16; K = 4) on a ragged frame and on a band, untracked and
      tracked; and the flat kernels' edges in all eight forms (tiles whose
      listed slots are all culled, depth ties at S = 125, a batch at a ragged
-     size, a band on a ragged width, hundreds of listed slots a block);
+     size, a band on a ragged width, hundreds of listed slots a block); and
+     each kernel's timing forms (phases "vis": the winning slot and its 1/z;
+     "shade": no texel fetch) untracked and tracked, bit for bit against
+     their plain versions (the flat kernels on the default scene, the
+     segmented ones on stress 840, 1920x1080), their depth equal to the
+     full form's;
   4. drive the main paths through Renderer(..., device="cuda"), which
      captures each frame size and batch in a CUDA graph at its first call
      and replays it, each with the launch counts of all four kernels set to
@@ -86,7 +91,10 @@ Phases; any failed check raises and the script exits non-zero:
      segmented ones at the split's cells and at 3840x2160 at G = 1, every
      wide slot residual), the splits of both trees, L2 cold,
      and each tree's whole frame (default, stress 840 at both sizes) and
-     segmented binning, in turns parent, this, this, parent;
+     segmented binning, in turns parent, this, this, parent; and the
+     frame's eight instances of csrc/raster.cu (phases 0) against the
+     parent's: the same registers and spills in each build's ptxas report
+     (no spills) and the same SASS (cuobjdump -sass, labels renumbered);
   6. the share of each eager flight's wall time the card is busy, each
      kernel's device time per frame in the flight, and the device-to-host
      copies the flight makes (must be none), from torch.profiler; each
@@ -154,13 +162,25 @@ Phases; any failed check raises and the script exits non-zero:
      "cuda" backend; steady_state_frame_time beside the back-to-back
      captured flight. Each path's launches are counted from 0 and added to
      the kernels line;
- 10. the validation matrix (run after phase 9, before phase 6):
+ 10. the validation matrix (run after phase 9, before phase 11):
      swift3drenderer_tpu_torch.tools.validate.main(["--fuzz", "12"]), the
      counterpart of tools/tpu_validate.py, 22 cases and 12 fuzz draws at
      the TPU tool's sizes, each card frame within golden's bound (0.2 %
      nearest, 0.3 % bilinear at tol 1) and bit-equal to the CPU's frame,
      the paths the TPU tool compared bit-equal; a FAIL line fails the run.
      Its launches are counted from 0 and added to the kernels line.
+ 11. the stage probes and the native core (run after phase 10, before
+     phase 6): tools.perf_probe (default scene, 1920x1080 and 3840x2160)
+     and tools.stress_probe (stress 840, 1920x1080) over a 10-pose flight,
+     each stage a captured graph, with every launch count set to 0 just
+     before and read just after (each timing form launched by its graphs'
+     warm-ups and captures); each probe cell's full stage replayed at two
+     poses, bit-equal to Renderer.render_device; each timing form L2 cold
+     beside the full form, its plain version and its bound (the kernels
+     line's timing rows); the native C++ core built on that machine, the
+     default scene at 1920x1080 through Renderer(backend="native") within
+     golden's 0.2 %, its host ms beside the card's captured frame, and
+     tools.native_baseline at --frames-scale 1.
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -198,12 +218,27 @@ KERNELS = ("raster_flat_nearest", "raster_segmented_nearest",
 # The kernels' tracking forms (the same wrappers with track_ids=True,
 # counted in .launches_ids).
 FORMS = KERNELS + tuple(f"{k}_ids" for k in KERNELS)
-# Each form's name in a profiler trace (the template instance it launches).
+# Each form's name in a profiler trace (the template instance it launches:
+# <sampling, tracking, phases>, phases 0 the frame).
 TRACE_NAMES = {f"raster_{route}_{sampling}{ids}":
                f"raster_{route}_kernel<{str(sampling == 'bilinear').lower()}, "
-               f"{str(bool(ids)).lower()}>"
+               f"{str(bool(ids)).lower()}, 0>"
                for route in ("flat", "segmented")
                for sampling in ("nearest", "bilinear") for ids in ("", "_ids")}
+# The timing forms of each route's kernels (phases "vis" and "shade", the
+# TPU kernel's timing instrument): one instance each, whatever the sampling
+# (they stop before the texel fetch), counted in each wrapper's
+# .launches_vis and .launches_shade; and the TPU kernel's line where each
+# stops.
+TIMING_FORMS = {"raster_flat_vis": "swift3drenderer_tpu/ops/raster_pallas.py:514",
+                "raster_flat_shade": "swift3drenderer_tpu/ops/raster_pallas.py:800",
+                "raster_segmented_vis":
+                    "swift3drenderer_tpu/ops/raster_pallas.py:491",
+                "raster_segmented_shade":
+                    "swift3drenderer_tpu/ops/raster_pallas.py:800"}
+# Phase 11: the stage probes' cells and flight, and the native core's.
+PROBE_FRAMES = 10
+NATIVE_BASELINE_SCALE = 1
 GID_BASE = 500             # tracking checks: gids 2 * GID_BASE + slot
 SCENE_RANKS = (2, 4, 8)    # the emulated triangle-sharded composites
 RANGE_RANKS = (1, 2, 4, 8)
@@ -242,8 +277,9 @@ class SmokeFailure(Exception):
 
 def reset_launches(raster) -> None:
     for k in KERNELS:
-        getattr(raster, k).launches = 0
-        getattr(raster, k).launches_ids = 0
+        for counter in ("launches", "launches_ids", "launches_vis",
+                        "launches_shade"):
+            setattr(getattr(raster, k), counter, 0)
 
 
 def read_launches(raster) -> dict:
@@ -252,6 +288,14 @@ def read_launches(raster) -> dict:
     out = {k: getattr(raster, k).launches for k in KERNELS}
     out.update({f"{k}_ids": getattr(raster, k).launches_ids for k in KERNELS})
     return out
+
+
+def read_timing_launches(raster) -> dict:
+    """Each timing form's launch count, over both samplings' wrappers."""
+    return {f"raster_{route}_{phases}": sum(
+        getattr(getattr(raster, f"raster_{route}_{s}"), f"launches_{phases}")
+        for s in ("nearest", "bilinear"))
+        for route in ("flat", "segmented") for phases in ("vis", "shade")}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -398,7 +442,8 @@ def bound_of(nbytes: int, flops: int) -> dict:
 
 
 def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
-               textures, width, height, list_bytes, sampling) -> dict:
+               textures, width, height, list_bytes, sampling,
+               phases="full") -> dict:
     """Least time the card could take for a raster kernel's work on one
     frame's inputs: ``bound_of`` its bytes and flops. Bytes, as this frame's
     data needs them: the per-tile list bounds (``list_bytes``); the
@@ -410,7 +455,9 @@ def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
     functions the frame needs); plus the shading of every pixel with a
     winner. ``tile_flops`` is the coarser count of the kernels' 32 x 8
     tiles, for comparison: each tile's pixels times ``tile_slots``, the slots
-    whose bbox touches the tile."""
+    whose bbox touches the tile. The timing forms need less: ``"vis"`` only
+    each slot's 16 visibility words and no shading, ``"shade"`` no atlas
+    word."""
     tile_w, tile_h = raster.TILE_W, raster.TILE_H
     ntx = -(-width // tile_w)
     ty, tx = np.divmod(np.arange(tile_slots.size), ntx)
@@ -422,10 +469,12 @@ def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
     bbox_px = int(((x1.clamp(max=width - 1) - x0.clamp(min=0) + 1).clamp(min=0)
                    * (y1.clamp(max=height - 1) - y0.clamp(min=0) + 1).clamp(min=0)
                    ).sum())
-    covered = int((win >= 0).sum().item())
-    texels = int(raster.fetched_texels(best, win, trf, tri, textures.shape[0],
-                                       sampling).numel())
-    nbytes = (list_bytes + ids_read * 4 + slots.numel() * TABLE_WORDS * 4
+    covered = int((win >= 0).sum().item()) if phases != "vis" else 0
+    texels = (int(raster.fetched_texels(best, win, trf, tri, textures.shape[0],
+                                        sampling).numel())
+              if phases == "full" else 0)
+    words = raster.REC_WORDS if phases == "vis" else TABLE_WORDS
+    nbytes = (list_bytes + ids_read * 4 + slots.numel() * words * 4
               + texels * 4 + width * height * 8)
     flops = VIS_FLOPS * bbox_px + SHADE_FLOPS[sampling] * covered
     tile_flops = (VIS_FLOPS * int((tile_slots * tile_px).sum())
@@ -439,20 +488,21 @@ def work_bound(raster, tile_slots, ids_read, slots, best, win, trf, tri,
 
 
 def flat_bound(raster, counts, ids, trf, tri, textures, width, height,
-               sampling) -> dict:
-    """work_bound of a flat kernel on one frame: each tile's list is its
-    binned slots."""
+               sampling, phases="full") -> dict:
+    """work_bound of a flat kernel (in the form ``phases``) on one frame:
+    each tile's list is its binned slots."""
     c = counts.reshape(-1).to("cpu").numpy().astype(np.int64)
     best, win = raster.visibility_plain(counts, ids, trf, tri, width=width,
                                         height=height)
     binned = ids.new_tensor(raster._binned_slots(counts, ids))
     return work_bound(raster, c, int(c.sum()), binned, best, win, trf, tri,
-                      textures, width, height, c.size * 4, sampling)
+                      textures, width, height, c.size * 4, sampling, phases)
 
 
 def segmented_bound(raster, binned, trf, tri, rec, textures, width, height,
-                    sampling) -> dict:
-    """work_bound of a segmented kernel on one frame: a tile's slots are
+                    sampling, phases="full") -> dict:
+    """work_bound of a segmented kernel (in the form ``phases``) on one
+    frame: a tile's slots are
     those of its lists whose bbox touches it (its segment, and of its
     super-tile's segment and the residual broadband list); walking the
     slots that miss the tile is the design's cost, not the work's, and
@@ -469,7 +519,7 @@ def segmented_bound(raster, binned, trf, tri, rec, textures, width, height,
                                                   width=width, height=height)
     out = work_bound(raster, tile_slots, entries + super_entries + wide,
                      slots.unique(), best, win, trf, tri, textures, width,
-                     height, counts.numel() * 8 + 4, sampling)
+                     height, counts.numel() * 8 + 4, sampling, phases)
     return {**out, "entries": entries, "super_tile_entries": super_entries,
             "broadband_slots": wide}
 
@@ -747,6 +797,106 @@ def sass_loops(path: str) -> dict:
                          (sum(i in r for i in loads["LDS"]) for r in loops),
                          default=0)}
     return out
+
+
+def raster_instance(name: str):
+    """(route, bilinear, tracking, phases) of a raster kernel instance's
+    mangled name, phases 0 (the frame) where the instance has no such
+    argument (a tree from before the timing forms), or None."""
+    import re
+    m = re.search(r"raster_(flat|segmented)_kernelILb([01])ELb([01])E"
+                  r"(?:Li(\d+)E)?E", name)
+    return None if m is None else (m.group(1), m.group(2) == "1",
+                                   m.group(3) == "1", int(m.group(4) or 0))
+
+
+def ptxas_usage(log: str) -> dict:
+    """From nvcc's ``-Xptxas -v`` output: each raster kernel instance's
+    registers and spill bytes (stores + loads), by ``raster_instance``."""
+    import re
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            key = raster_instance(m.group(1))
+            if key is not None:
+                out[key] = {}
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[key]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
+def raster_sass(path: str) -> dict:
+    """From ``cuobjdump -sass`` of a built raster library: each kernel
+    instance's instructions (by ``raster_instance``), addresses dropped and
+    branch labels renamed in their order within the instance, so that two
+    builds of the same code compare equal. {"error": ...} if cuobjdump
+    fails."""
+    import os
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    try:
+        proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                              text=True, timeout=120)
+    except OSError as e:
+        return {"error": f"not measured: {e}"}
+    if proc.returncode:
+        return {"error": f"not measured: {proc.stderr.strip()[:200]}"}
+    out = {}
+    for chunk in proc.stdout.split("Function : ")[1:]:
+        key = raster_instance(chunk.split(None, 1)[0])
+        if key is None:
+            continue
+        labels, instrs = {}, []
+        for line in chunk.splitlines():
+            ins = re.match(r"\s*/\*[0-9a-f]+\*/\s+(.*?)\s*;", line)
+            if ins:
+                instrs.append(re.sub(
+                    r"\.L_x_\d+",
+                    lambda l: labels.setdefault(l.group(0), f"L{len(labels)}"),
+                    ins.group(1)))
+        out[key] = instrs
+    return out
+
+
+def same_as_parent(this_log: str, parent_log: str, this_so: str,
+                   parent_so: str) -> list:
+    """The frame's instances (phases 0) of this tree's raster kernels against
+    the parent tree's: registers and spills from each build's ptxas report,
+    and the SASS, instruction for instruction. Fails where any differs, or
+    where one spills. Returns one row an instance."""
+    ours, theirs = ptxas_usage(this_log), ptxas_usage(parent_log)
+    sass = {"this": raster_sass(this_so), "parent": raster_sass(parent_so)}
+    for who, got in sass.items():
+        check("error" not in got, f"SASS of the {who} tree: {got.get('error')}")
+    rows = []
+    for key in sorted(k for k in ours if k[3] == 0):
+        check(key in theirs and key in sass["parent"] and key in sass["this"],
+              f"instance {key}: missing from a build of either tree")
+        row = {"instance": "raster_{}_kernel<{}, {}, 0>".format(
+                   key[0], str(key[1]).lower(), str(key[2]).lower()),
+               **{f"this_{k}": v for k, v in ours[key].items()},
+               **{f"parent_{k}": v for k, v in theirs[key].items()},
+               "sass_instructions": len(sass["this"][key]),
+               "sass_equal": sass["this"][key] == sass["parent"][key]}
+        rows.append(row)
+        print(f"full form vs parent: {json.dumps(row)}", flush=True)
+        check(ours[key] == theirs[key] and ours[key].get("spill_bytes") == 0,
+              f"{row['instance']}: registers or spills differ from the "
+              f"parent's, or it spills ({json.dumps(row)})")
+        check(row["sass_equal"], f"{row['instance']}: SASS differs from the "
+              "parent's")
+    check(len(rows) == 8, f"{len(rows)} full-form instances, want 8")
+    return rows
 
 
 def probe_sass(sass: dict, probe: str, mode_index: int | None) -> dict:
@@ -1507,6 +1657,149 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
     return summary
 
 
+def stage_phase(torch, raster, scenes, renderers, errs, poses, card,
+                setup_of, device="cuda") -> tuple:
+    """Phase 11: the stage probes (tools/perf_probe.py's and
+    tools/stress_probe.py's counterparts: the frame split into front-end,
+    binning, the kernel's timing forms and the full frame, each stage a
+    captured graph replayed over a short flight) with the timing forms'
+    launch counts set to 0 just before and read just after; the full
+    stage's frame against Renderer.render_device; the timing forms' rows of
+    the kernels line (``errs`` holds phase 3's comparisons); and the native
+    C++ core. Returns (timing rows, probe results, native results)."""
+    from swift3drenderer_tpu_torch import Renderer, native
+    from swift3drenderer_tpu_torch.config import DEFAULT_CONFIG
+    from swift3drenderer_tpu_torch.golden import render_frame as golden_frame
+    from swift3drenderer_tpu_torch.tools import (native_baseline, perf_probe,
+                                                 stress_probe)
+    bg = DEFAULT_CONFIG.background_packed
+    reset_launches(raster)
+    probes = {"perf_probe default": perf_probe.main(
+        ["--configs", ",".join(f"{w}x{h}" for w, h in RESOLUTIONS),
+         "--frames", str(PROBE_FRAMES), "--device", device])}
+    check(stress_probe.main(["--objects", str(STRESS_OBJECTS), "--w",
+                             str(RESOLUTIONS[0][0]), "--h",
+                             str(RESOLUTIONS[0][1]), "--frames",
+                             str(PROBE_FRAMES), "--device", device]) == 0,
+          "stress_probe failed")
+    if device == "cuda":
+        torch.cuda.synchronize()
+    timing_launches = read_timing_launches(raster)
+    print(f"main path stage probes: launches "
+          f"{json.dumps({**read_launches(raster), **timing_launches})}",
+          flush=True)
+    # Each probe cell captures each stage once: its warm-up and its capture
+    # launch each form it runs (perf_probe: default at both sizes, flat;
+    # stress_probe: stress 840 at 1080p, segmented).
+    want = {"raster_flat_vis": 2 * len(RESOLUTIONS),
+            "raster_flat_shade": 2 * len(RESOLUTIONS),
+            "raster_segmented_vis": 2, "raster_segmented_shade": 2}
+    check(timing_launches == want,
+          f"stage probes: timing-form launches {timing_launches}, want {want}")
+    # stress_probe's numbers, and the full stage's frame (replayed from its
+    # graph) against Renderer.render_device, per probe cell.
+    probes["stress_probe stress840"] = stress_probe.probe(
+        "stress", STRESS_OBJECTS, *RESOLUTIONS[0], PROBE_FRAMES, device)
+    probe_poses = perf_probe.flight(PROBE_FRAMES)
+    for name, (w, h) in [("default", size) for size in RESOLUTIONS] + [
+            ("stress840", RESOLUTIONS[0])]:
+        stages = perf_probe.Stages(scenes[name], w, h, device=device)
+        for m in (probe_poses[0], probe_poses[-1]):
+            pix, depth = (t.clone() for t in stages.run("full", m))
+            compare(pix, depth, *renderers[name].render_device(m, w, h),
+                    f"perf_probe full stage vs Renderer.render_device {name} "
+                    f"{w}x{h}")
+        if stages.graphs is not None:
+            stages.graphs.close()
+    print(f"stage probes on {card}: {json.dumps(probes)}", flush=True)
+
+    # The timing forms' rows: each form at its main shape (the flat route on
+    # the default scene, the segmented on stress 840, 1920x1080, pose 0),
+    # L2 cold, its plain version, and the least time for its work.
+    width, height = RESOLUTIONS[0]
+    timing_rows = []
+    for form, replaces in TIMING_FORMS.items():
+        route, phases = form.split("_")[1:]
+        scene_name = "default" if route == "flat" else "stress840"
+        arr = renderers[scene_name].dev
+        tex = arr["textures"]
+        kw = dict(width=width, height=height, background=bg, phases=phases)
+        setup = setup_of(poses[0], width, height, arr)
+        args = (*tree_binned(raster, route, setup, width, height),
+                *tree_tables(raster, route, setup))
+        if route == "flat":
+            bound = flat_bound(raster, *args, tex, width, height, "nearest",
+                               phases)
+        else:
+            bound = segmented_bound(raster, args[:6], *args[6:], tex, width,
+                                    height, "nearest", phases)
+        launch = getattr(raster, f"raster_{route}_nearest")
+        plain = getattr(raster, f"raster_{route}_nearest_plain")
+        e = list(errs[form].values())
+        row = {"name": form, "route": "cuda",
+               "source": "swift3drenderer_tpu_torch/csrc/raster.cu",
+               "replaces": replaces, "launches": timing_launches[form],
+               "max_abs_err": max(x["max_channel_err"] for x in e),
+               "depth_max_abs_err": max(x["depth_max_abs_err"] for x in e),
+               "frames_compared": len(e),
+               "tolerance": "bit-equal pixels, depth and gids (checked)",
+               "at": f"{scene_name} {width}x{height}",
+               "ms": time_cold_ms(torch, lambda: launch(*args, tex, **kw)),
+               "full_form_ms_same_call": time_cold_ms(
+                   torch, lambda: launch(*args, tex, width=width,
+                                         height=height, background=bg)),
+               "plain_ms": time_ms(torch, lambda: plain(*args, tex, **kw), 2,
+                                   warmup=1),
+               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+               "bytes": bound["bytes"], "flops": bound["flops"],
+               "library_ms": None}
+        timing_rows.append(row)
+        print(f"timing form {form}: {json.dumps(row)}", flush=True)
+
+    # The native core: built on this machine from native/src, the default
+    # scene at 1920x1080 through Renderer(backend="native") over the flight
+    # (golden < 0.2 % at tol 1), its host ms beside the card's captured
+    # frame (Renderer.render, host arrays out), then the baseline configs.
+    cpu_model = "not read"
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("model name"):
+                cpu_model = line.split(":", 1)[1].strip()
+                break
+    t0 = time.perf_counter()
+    native.build()
+    native_build_s = time.perf_counter() - t0
+    host = Renderer(scenes["default"], backend="native")
+    card_r = renderers["default"]
+    host.render(poses[0], width, height)
+    card_r.render(poses[0], width, height)
+    native_ms, card_ms = [], []
+    for m in poses:
+        t0 = time.perf_counter()
+        px, _ = host.render(m, width, height)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        card_px, _ = card_r.render(m, width, height)
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    gp, _ = golden_frame(scenes["default"], poses[-1], width, height)
+    native_res = {
+        "cpu": cpu_model, "build_s": native_build_s,
+        "library": native.library_path(),
+        "at": f"default {width}x{height}", "frames": len(poses),
+        "native_ms_median": statistics.median(native_ms),
+        "card_render_ms_median": statistics.median(card_ms),
+        "golden_mismatch": pixel_mismatch_fraction(gp, px),
+        "card_mismatch": pixel_mismatch_fraction(card_px, px)}
+    print(f"native core on {cpu_model} beside the card ({card}): "
+          f"{json.dumps(native_res)}", flush=True)
+    check(native_res["golden_mismatch"] < GOLDEN_BOUND["nearest"],
+          f"native default {width}x{height}: golden mismatch "
+          f"{native_res['golden_mismatch']}")
+    native_res["baseline"] = native_baseline.main(
+        ["--frames-scale", str(NATIVE_BASELINE_SCALE)])
+    return timing_rows, probes, native_res
+
+
 def run(parent: str | None = None) -> dict:
     import torch
 
@@ -1602,7 +1895,7 @@ def run(parent: str | None = None) -> dict:
 
     # ---- 3. kernels vs plain versions on the card ----
     phase("3. kernels vs plain versions")
-    errs = {k: {} for k in FORMS}
+    errs = {k: {} for k in (*FORMS, *TIMING_FORMS)}
 
     def report(store, key, res, what):
         store[key] = res
@@ -1760,6 +2053,37 @@ def run(parent: str | None = None) -> dict:
         hold_ids(route, sampling, setup, width, height,
                  arrays[name]["textures"],
                  f"{name} {width}x{height} B={m.shape[0] if m.ndim == 3 else 1}")
+
+    # The timing forms (phases "vis" and "shade") of each kernel against
+    # their plain versions, pixels, depth and gids bit for bit, untracked
+    # and tracked: the flat kernels on the default scene and the segmented
+    # ones on stress 840 at 1920x1080; and their depth against the full
+    # form's.
+    for route, name in (("flat", "default"), ("segmented", "stress840")):
+        setup = setup_of(poses[0], width, height, arrays[name])
+        tex = arrays[name]["textures"]
+        kw = dict(width=width, height=height, background=bg)
+        for sampling in ("nearest", "bilinear"):
+            kernel = kernel_of(route, sampling)
+            for track in (False, True):
+                args = (*binned_for(route, setup, width, height),
+                        *tables_for(route, setup,
+                                    gids_for(setup) if track else None), tex)
+                full = getattr(raster, kernel)(*args, track_ids=track, **kw)
+                for phases in ("vis", "shade"):
+                    got = getattr(raster, kernel)(*args, track_ids=track,
+                                                  phases=phases, **kw)
+                    want = getattr(raster, f"{kernel}_plain")(
+                        *args, track_ids=track, phases=phases, **kw)
+                    what = (f"{kernel} phases={phases} vs plain {name} "
+                            f"{width}x{height}{', tracked' if track else ''}")
+                    res = compare(*got[:2], *want[:2], what)
+                    check(not track or torch.equal(got[2], want[2]),
+                          f"{what}: gid planes differ")
+                    check(torch.equal(got[1], full[1]),
+                          f"{what}: depth differs from the full form's")
+                    report(errs[f"raster_{route}_{phases}"],
+                           (sampling, track), res, what)
 
     # Bands: each frame cut into 2, 4 and 8 bands (rows [y0, y1), y0 > 0 for
     # all but the first), each band binned and launched with y_offset = y0,
@@ -2530,8 +2854,15 @@ def run(parent: str | None = None) -> dict:
     # wide slots each cover more than K super-tiles.
     ab, frame_ab = [], []
     trees = {"this": raster}
+    full_vs_parent = "not measured"
     if parent:
         trees["parent"] = load_parent(parent)
+        # The frame's instances of both trees, built from each tree's
+        # csrc/raster.cu: the same registers, no spills, the same SASS.
+        parent_kernels = load_parent(parent, "kernels")
+        full_vs_parent = same_as_parent(
+            logs["raster.cu"], parent_kernels.build(), kernels.library_path(),
+            parent_kernels.library_path())
         # (name, route, sampling, width, height, G, B, y0, rows)
         ab_cases = [("default", "flat", sampling, w, h, None, 1, 0, h)
                     for sampling in ("nearest", "bilinear")
@@ -3050,6 +3381,12 @@ def run(parent: str | None = None) -> dict:
         launches[k] += got[k]
     print(f"validation matrix: ALL PASS on {card}", flush=True)
 
+    # ---- 11. the stage probes and the native core; before the profiles of
+    # phase 6 ----
+    phase("11. stage probes and the native core")
+    timing_rows, probes, native_res = stage_phase(
+        torch, raster, scenes, renderers, errs, poses, card, setup_of)
+
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
     phase("6. profiles")
@@ -3221,14 +3558,15 @@ def run(parent: str | None = None) -> dict:
         kernel_row("raster_segmented_bilinear",
                    "swift3drenderer_tpu/ops/raster_pallas.py:1132",
                    "stress840 bilinear"),
-    ] + [ids_row(k, ids_source) for k in KERNELS] + probe_rows
+    ] + [ids_row(k, ids_source) for k in KERNELS] + timing_rows + probe_rows
     print(json.dumps({"bands": bands, "composites": sharded,
                       "per_range_ms": range_ms, "merge_ms": merge_ms,
                       "ab_parent": ab or "not measured",
                       "frame_ab_parent": frame_ab or "not measured",
                       "split": split, "flat_split": split_flat,
                       "seg_sweep": seg_sweep, "captured": captured_summary,
-                      "app": app_summary}))
+                      "app": app_summary, "full_vs_parent": full_vs_parent,
+                      "stage_probes": probes, "native": native_res}))
     phase("done")
     print(card)
     print(json.dumps({"kernels": kernels_line}))

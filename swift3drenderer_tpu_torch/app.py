@@ -13,8 +13,10 @@ in the JAX package's JSON format.
 Counterpart of ``swift3drenderer_tpu.app``. Frames render on ``device``
 (default the card; ``device="cpu"`` / ``--device cpu`` takes the kernels'
 plain versions) through ``backend``: ``"cuda"`` (the hand-written raster
-kernels, the default) or ``"xla"`` (``ops.raster_xla``). The JAX app's
-backends are ``xla``, ``pallas`` and ``native``; its default is ``xla``.
+kernels, the default) or ``"xla"`` (``ops.raster_xla``), or on the host
+through ``"native"`` (the C++ core of ``native/``). The JAX app's backends
+are ``xla``, ``pallas`` and ``native``; its default is ``xla``. Neither app
+moves to another backend by itself here: a render failure raises.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ class FrameLoop:
         # drag-resize never stalls on per-size captures (reference
         # main.swift:156-165 keeps rendering at every size). Off by default —
         # exact-size frames are marginally faster for fixed-size capture runs.
-        self.bucketed = bucketed
+        # The native core renders any size as it comes, so it has no buckets.
+        self.bucketed = bucketed and backend != "native"
         self.renderer = Renderer(scene, config=config, device=device,
                                  backend=backend)
         self.camera = Camera(config)
@@ -364,10 +367,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--frames", type=int, default=120)
     p.add_argument("--script", default="60:w;60:w mx2",
                    help="flight script, e.g. '60:w;30:w+mx2;30:s'")
-    p.add_argument("--backend", default="cuda", choices=["cuda", "xla"],
+    p.add_argument("--backend", default="cuda",
+                   choices=["cuda", "xla", "native"],
                    help="'cuda': the hand-written raster kernels (default); "
                         "'xla': the portable banded rasterizer, on the same "
-                        "device")
+                        "device; 'native': the C++ core on the host (built "
+                        "at first use; --device is then not read)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="render on the card (default) or on the CPU with the "
                         "kernels' plain versions")

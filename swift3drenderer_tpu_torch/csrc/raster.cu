@@ -21,7 +21,14 @@
 // :497-498): a third output plane with each winner's row kGID value, -1 where
 // nothing covers. Every kernel takes the band's first framebuffer row y0 (the
 // TPU kernel's y0_ref / y_top): it covers rows [y0, y0 + height) of a
-// full-frame setup table into a (height, width) output.
+// full-frame setup table into a (height, width) output. Each has two timing
+// forms besides the frame (kPhases, the TPU kernel's phases, :250-258, read
+// by tools/perf_probe.py): kVis stops after visibility and stores each
+// pixel's winning slot (-1 where nothing covers) and its 1/z (:491, :514);
+// kShade stops before the texel fetch (:800), flat-coloured winners packed,
+// textured winners left at the background. Their outputs are not a frame;
+// they are built to be right, not fast, and the frame's instances (kFull)
+// compile to the code they had before the timing forms existed.
 //
 // Design. One thread per pixel of a kTileW x kTileH tile (TILE_W x TILE_H in
 // ops/raster.py, which bins for it); the grid's third axis is the frame, and
@@ -127,6 +134,9 @@ constexpr int kWarps = kThreads / 32;
 // pieces.
 constexpr int kVisF32Rows = 12, kVisI32Rows = 4;
 constexpr int kRecPieces = 4;
+// The kernels' forms (ops/raster.py's PHASES, in its order): the frame, and
+// the timing forms that stop after visibility or before the texel fetch.
+constexpr int kFull = 0, kVis = 1, kShade = 2;
 
 // Asynchronous 16-byte copies from global to shared memory (sm_80 and up):
 // the counterpart of the TPU kernel's make_async_copy, one commit group per
@@ -308,7 +318,9 @@ __device__ __forceinline__ int block_compact(bool keep, int lane,
 // flat colour pack, or its nearest texel (or bilinear blend of four) times
 // the shade. T(r) and I(r) read the winner's f32 and i32 table rows r (only
 // where win >= 0); py is the framebuffer row, row = py - y0 the output row.
-template <bool kBilinear, bool kTrackIds, class F32, class I32>
+// The timing forms store the winner itself (kVis) or stop before the fetch,
+// a textured winner at the background (kShade).
+template <bool kBilinear, bool kTrackIds, int kPhases, class F32, class I32>
 __device__ __forceinline__ void shade_and_store(
     F32 T, I32 I, const int* __restrict__ atlas, int num_textures,
     float best, int win, int px, int py, int row, int width, int height,
@@ -318,6 +330,10 @@ __device__ __forceinline__ void shade_and_store(
   const size_t o = static_cast<size_t>(row) * width + px;
   depth[o] = best;
   if constexpr (kTrackIds) gid[o] = win < 0 ? -1 : I(kGID);
+  if constexpr (kPhases == kVis) {
+    pix[o] = win;
+    return;
+  }
   if (win < 0) {
     pix[o] = background;
     return;
@@ -351,6 +367,10 @@ __device__ __forceinline__ void shade_and_store(
               cb = interp(kATTRP + 2);
   if (I(kISTEX) == 0) {
     pix[o] = pack_rgb(sh, cr, cg, cb);
+    return;
+  }
+  if constexpr (kPhases == kShade) {
+    pix[o] = background;
     return;
   }
 
@@ -422,7 +442,7 @@ __device__ __forceinline__ constexpr int flat_word_i32(int r) {
   return r < kVisI32Rows ? kVisF32Rows + r : kF32Rows + r;
 }
 
-template <bool kBilinear, bool kTrackIds>
+template <bool kBilinear, bool kTrackIds, int kPhases>
 __global__ void __launch_bounds__(kThreads, kFlatBlocksPerSM)
 raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
                    const float* __restrict__ trf, const int* __restrict__ tri,
@@ -563,7 +583,7 @@ raster_flat_kernel(const int* __restrict__ counts, const int* __restrict__ ids,
       }
     }
     const float* w = words + max(win, 0) * kFlatRecWords;
-    shade_and_store<kBilinear, kTrackIds>(
+    shade_and_store<kBilinear, kTrackIds, kPhases>(
         [&](int r) { return w[flat_word_f32(r)]; },
         [&](int r) { return __float_as_int(w[flat_word_i32(r)]); }, atlas,
         num_textures, best, win, px, py, row, width, height, background, pix,
@@ -580,7 +600,7 @@ constexpr int kSegmentedBlocksPerSM = 6;
 // Residual broadband slots a block holds after filtering them by bbox.
 constexpr int kHits = 1024;
 
-template <bool kBilinear, bool kTrackIds>
+template <bool kBilinear, bool kTrackIds, int kPhases>
 __global__ void __launch_bounds__(kThreads, kSegmentedBlocksPerSM)
 raster_segmented_kernel(const int* __restrict__ ids,
                         const int* __restrict__ starts,
@@ -704,7 +724,7 @@ raster_segmented_kernel(const int* __restrict__ ids,
     m = staged;
   }
   const int f = f32_frame + win, i = i32_frame + win;
-  shade_and_store<kBilinear, kTrackIds>(
+  shade_and_store<kBilinear, kTrackIds, kPhases>(
       [&](int r) { return trf[r * S + f]; },
       [&](int r) { return tri[r * S + i]; }, atlas, num_textures, best, win,
       px, py, row, width, height, background, pix, depth, gid);
@@ -738,90 +758,103 @@ dim3 flat_grid(int frames, int width, int height) {
               frames);
 }
 
-template <bool kBilinear, bool kTrackIds>
-void start_flat(const void* counts, const void* ids, const void* trf,
-                const void* tri, const void* atlas, void* pix, void* depth,
-                void* gid, int frames, int S, int num_textures, int width,
-                int height, int y0, int background, void* stream) {
-  raster_flat_kernel<kBilinear, kTrackIds>
-      <<<flat_grid(frames, width, height), dim3(kTileW, kTileH), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(counts), static_cast<const int*>(ids),
-          static_cast<const float*>(trf), static_cast<const int*>(tri),
-          static_cast<const int*>(atlas), num_textures, static_cast<int*>(pix),
-          static_cast<float*>(depth), static_cast<int*>(gid), S, width, height,
-          y0, background);
+// A launch's arguments, as the C entry points take them.
+struct FlatArgs {
+  const void *counts, *ids, *trf, *tri, *atlas;
+  void *pix, *depth, *gid;
+  int frames, S, num_textures, width, height, y0, background;
+  void* stream;
+};
+
+struct SegmentedArgs {
+  const void *ids, *starts, *counts, *bb, *bb_count, *bb_box, *trf, *tri,
+      *rec, *atlas;
+  void *pix, *depth, *gid;
+  int frames, S, entries, g, num_textures, width, height, y0, background;
+  void* stream;
+};
+
+template <bool kBilinear, bool kTrackIds, int kPhases>
+void start_flat(const FlatArgs& a) {
+  raster_flat_kernel<kBilinear, kTrackIds, kPhases>
+      <<<flat_grid(a.frames, a.width, a.height), dim3(kTileW, kTileH), 0,
+         static_cast<cudaStream_t>(a.stream)>>>(
+          static_cast<const int*>(a.counts), static_cast<const int*>(a.ids),
+          static_cast<const float*>(a.trf), static_cast<const int*>(a.tri),
+          static_cast<const int*>(a.atlas), a.num_textures,
+          static_cast<int*>(a.pix), static_cast<float*>(a.depth),
+          static_cast<int*>(a.gid), a.S, a.width, a.height, a.y0,
+          a.background);
 }
 
-// A null gid selects the kernel without the gid plane. At most
-// kFlatMaxSlots slots: a frame's rows fit the block's shared memory.
+template <bool kBilinear, bool kTrackIds, int kPhases>
+void start_segmented(const SegmentedArgs& a) {
+  raster_segmented_kernel<kBilinear, kTrackIds, kPhases>
+      <<<tile_grid(a.frames, a.width, a.height), dim3(kTileW, kTileH), 0,
+         static_cast<cudaStream_t>(a.stream)>>>(
+          static_cast<const int*>(a.ids), static_cast<const int*>(a.starts),
+          static_cast<const int*>(a.counts), static_cast<const int*>(a.bb),
+          static_cast<const int*>(a.bb_count),
+          static_cast<const int4*>(a.bb_box), static_cast<const float*>(a.trf),
+          static_cast<const int*>(a.tri), static_cast<const float4*>(a.rec),
+          static_cast<const int*>(a.atlas), a.num_textures,
+          static_cast<int*>(a.pix), static_cast<float*>(a.depth),
+          static_cast<int*>(a.gid), a.S, a.entries, a.g, a.width, a.height,
+          a.y0, a.background);
+}
+
+// The instances of a form: the tracking one where gid is not null.
+template <bool kBilinear, int kPhases>
+void start_flat_form(const FlatArgs& a) {
+  if (a.gid) {
+    start_flat<kBilinear, true, kPhases>(a);
+  } else {
+    start_flat<kBilinear, false, kPhases>(a);
+  }
+}
+
+template <bool kBilinear, int kPhases>
+void start_segmented_form(const SegmentedArgs& a) {
+  if (a.gid) {
+    start_segmented<kBilinear, true, kPhases>(a);
+  } else {
+    start_segmented<kBilinear, false, kPhases>(a);
+  }
+}
+
+// The timing forms stop before the texel fetch, where alone the samplings
+// differ, so both samplings launch the nearest instance of each.
+
+// At most kFlatMaxSlots slots: a frame's rows fit the block's shared memory.
 template <bool kBilinear>
-int launch_flat(const void* counts, const void* ids, const void* trf,
-                const void* tri, const void* atlas, void* pix, void* depth,
-                void* gid, int frames, int S, int num_textures, int width,
-                int height, int y0, int background, void* stream) {
-  if (bad_frame(frames, width, height, S) || S > kFlatMaxSlots || y0 < 0) {
+int launch_flat(const FlatArgs& a, int phases) {
+  if (bad_frame(a.frames, a.width, a.height, a.S) || a.S > kFlatMaxSlots
+      || a.y0 < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (gid) {
-    start_flat<kBilinear, true>(counts, ids, trf, tri, atlas, pix, depth, gid,
-                                frames, S, num_textures, width, height, y0,
-                                background, stream);
-  } else {
-    start_flat<kBilinear, false>(counts, ids, trf, tri, atlas, pix, depth,
-                                 nullptr, frames, S, num_textures, width,
-                                 height, y0, background, stream);
+  switch (phases) {
+    case kFull: start_flat_form<kBilinear, kFull>(a); break;
+    case kVis: start_flat_form<false, kVis>(a); break;
+    case kShade: start_flat_form<false, kShade>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kBilinear, bool kTrackIds>
-void start_segmented(const void* ids, const void* starts, const void* counts,
-                     const void* bb, const void* bb_count, const void* bb_box,
-                     const void* trf, const void* tri, const void* rec,
-                     const void* atlas, void* pix, void* depth, void* gid,
-                     int frames, int S, int entries, int g, int num_textures,
-                     int width, int height, int y0, int background,
-                     void* stream) {
-  raster_segmented_kernel<kBilinear, kTrackIds>
-      <<<tile_grid(frames, width, height), dim3(kTileW, kTileH), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int*>(ids), static_cast<const int*>(starts),
-          static_cast<const int*>(counts), static_cast<const int*>(bb),
-          static_cast<const int*>(bb_count), static_cast<const int4*>(bb_box),
-          static_cast<const float*>(trf), static_cast<const int*>(tri),
-          static_cast<const float4*>(rec), static_cast<const int*>(atlas),
-          num_textures, static_cast<int*>(pix), static_cast<float*>(depth),
-          static_cast<int*>(gid), S, entries, g, width, height, y0,
-          background);
 }
 
 // Boxes and records are read 16 bytes at a time: ``bb_box`` and ``rec``
 // must be 16-byte aligned.
 template <bool kBilinear>
-int launch_segmented(const void* ids, const void* starts, const void* counts,
-                     const void* bb, const void* bb_count, const void* bb_box,
-                     const void* trf, const void* tri, const void* rec,
-                     const void* atlas, void* pix, void* depth, void* gid,
-                     int frames, int S, int entries, int g, int num_textures,
-                     int width, int height, int y0, int background,
-                     void* stream) {
-  if (bad_frame(frames, width, height, S) || entries < 0 || y0 < 0 || g < 1
-      || reinterpret_cast<size_t>(rec) % 16 != 0
-      || reinterpret_cast<size_t>(bb_box) % 16 != 0) {
+int launch_segmented(const SegmentedArgs& a, int phases) {
+  if (bad_frame(a.frames, a.width, a.height, a.S) || a.entries < 0
+      || a.y0 < 0 || a.g < 1 || reinterpret_cast<size_t>(a.rec) % 16 != 0
+      || reinterpret_cast<size_t>(a.bb_box) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (gid) {
-    start_segmented<kBilinear, true>(ids, starts, counts, bb, bb_count, bb_box,
-                                     trf, tri, rec, atlas, pix, depth, gid,
-                                     frames, S, entries, g, num_textures,
-                                     width, height, y0, background, stream);
-  } else {
-    start_segmented<kBilinear, false>(ids, starts, counts, bb, bb_count,
-                                      bb_box, trf, tri, rec, atlas, pix, depth,
-                                      nullptr, frames, S, entries, g,
-                                      num_textures, width, height, y0,
-                                      background, stream);
+  switch (phases) {
+    case kFull: start_segmented_form<kBilinear, kFull>(a); break;
+    case kVis: start_segmented_form<false, kVis>(a); break;
+    case kShade: start_segmented_form<false, kShade>(a); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -831,19 +864,22 @@ int launch_segmented(const void* ids, const void* starts, const void* counts,
 // Each entry point launches its kernel on ``stream``, one block a tile (the
 // segmented kernels) or up to kFlatTiles tiles (the flat ones, at most
 // kFlatMaxSlots slots) of each frame, covering framebuffer rows [y0, y0 + H),
-// and returns cudaGetLastError() (0 when the launch was accepted). Per-frame
-// inputs and outputs are frame-major: frame b's are at b times one frame's
-// size. With a non-null gid the tracking form also writes
-// the winners' gids there; with a null gid it is the kernel without them.
+// in the form ``phases`` (kFull, kVis or kShade), and returns
+// cudaGetLastError() (0 when the launch was accepted). Per-frame inputs and
+// outputs are frame-major: frame b's are at b times one frame's size. With a
+// non-null gid the tracking form also writes the winners' gids there; with a
+// null gid it is the kernel without them.
 extern "C" int raster_flat_nearest(const void* counts, const void* ids,
                                    const void* trf, const void* tri,
                                    const void* atlas, void* pix, void* depth,
                                    void* gid, int frames, int S,
                                    int num_textures, int width, int height,
-                                   int y0, int background, void* stream) {
-  return launch_flat<false>(counts, ids, trf, tri, atlas, pix, depth, gid,
-                            frames, S, num_textures, width, height, y0,
-                            background, stream);
+                                   int y0, int background, int phases,
+                                   void* stream) {
+  return launch_flat<false>({counts, ids, trf, tri, atlas, pix, depth, gid,
+                             frames, S, num_textures, width, height, y0,
+                             background, stream},
+                            phases);
 }
 
 extern "C" int raster_flat_bilinear(const void* counts, const void* ids,
@@ -851,10 +887,12 @@ extern "C" int raster_flat_bilinear(const void* counts, const void* ids,
                                     const void* atlas, void* pix, void* depth,
                                     void* gid, int frames, int S,
                                     int num_textures, int width, int height,
-                                    int y0, int background, void* stream) {
-  return launch_flat<true>(counts, ids, trf, tri, atlas, pix, depth, gid,
-                           frames, S, num_textures, width, height, y0,
-                           background, stream);
+                                    int y0, int background, int phases,
+                                    void* stream) {
+  return launch_flat<true>({counts, ids, trf, tri, atlas, pix, depth, gid,
+                            frames, S, num_textures, width, height, y0,
+                            background, stream},
+                           phases);
 }
 
 extern "C" int raster_segmented_nearest(
@@ -862,11 +900,12 @@ extern "C" int raster_segmented_nearest(
     const void* bb_count, const void* bb_box, const void* trf, const void* tri,
     const void* rec, const void* atlas, void* pix, void* depth, void* gid,
     int frames, int S, int entries, int g, int num_textures, int width,
-    int height, int y0, int background, void* stream) {
-  return launch_segmented<false>(ids, starts, counts, bb, bb_count, bb_box,
-                                 trf, tri, rec, atlas, pix, depth, gid, frames,
-                                 S, entries, g, num_textures, width, height,
-                                 y0, background, stream);
+    int height, int y0, int background, int phases, void* stream) {
+  return launch_segmented<false>(
+      {ids, starts, counts, bb, bb_count, bb_box, trf, tri, rec, atlas, pix,
+       depth, gid, frames, S, entries, g, num_textures, width, height, y0,
+       background, stream},
+      phases);
 }
 
 extern "C" int raster_segmented_bilinear(
@@ -874,11 +913,12 @@ extern "C" int raster_segmented_bilinear(
     const void* bb_count, const void* bb_box, const void* trf, const void* tri,
     const void* rec, const void* atlas, void* pix, void* depth, void* gid,
     int frames, int S, int entries, int g, int num_textures, int width,
-    int height, int y0, int background, void* stream) {
-  return launch_segmented<true>(ids, starts, counts, bb, bb_count, bb_box,
-                                trf, tri, rec, atlas, pix, depth, gid, frames,
-                                S, entries, g, num_textures, width, height,
-                                y0, background, stream);
+    int height, int y0, int background, int phases, void* stream) {
+  return launch_segmented<true>(
+      {ids, starts, counts, bb, bb_count, bb_box, trf, tri, rec, atlas, pix,
+       depth, gid, frames, S, entries, g, num_textures, width, height, y0,
+       background, stream},
+      phases);
 }
 
 extern "C" const char* s3d_cuda_error_string(int code) {

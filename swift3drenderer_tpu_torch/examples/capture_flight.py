@@ -6,7 +6,8 @@ Usage:
         [scene] [backend] [WxH] [frames] [--device cuda|cpu] [--out DIR]
 
 Scenes: any of ``models.SCENES``, a data.bin path, or an OBJ. Backends:
-cuda (default; the hand-written kernels) or xla (the portable rasterizer).
+cuda (default; the hand-written kernels), xla (the portable rasterizer) or
+native (the C++ core on the host).
 Writes ``DIR/flight_frames/`` (every 15th frame) and ``DIR/flight_final.ppm``.
 """
 
@@ -27,7 +28,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m swift3drenderer_tpu_torch.examples.capture_flight")
     p.add_argument("scene", nargs="?", default="default")
-    p.add_argument("backend", nargs="?", default="cuda", choices=["cuda", "xla"])
+    p.add_argument("backend", nargs="?", default="cuda",
+                   choices=["cuda", "xla", "native"])
     p.add_argument("size", nargs="?", default="640x400", metavar="WxH")
     p.add_argument("frames", nargs="?", type=int, default=90)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])

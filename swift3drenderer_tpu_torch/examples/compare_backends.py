@@ -7,9 +7,11 @@ Usage:
         [scene] [WxH] [--device cuda|cpu] [--sampling nearest|bilinear]
 
 Each backend (``cuda``: the hand-written kernels; ``xla``: the portable
-banded rasterizer) renders the scene at the identity camera, once to warm up
-(build, capture) and once timed; its pixel mismatch against golden at tol 1
-must stay under 0.2 % (0.3 % bilinear). Exits 1 when a backend does not.
+banded rasterizer, both on ``--device``; ``native``: the C++ core on the
+host, the JAX example's third backend) renders the scene at the identity
+camera, once to warm up (build, capture) and once timed; its pixel mismatch
+against golden at tol 1 must stay under 0.2 % (0.3 % bilinear). Exits 1
+when a backend does not.
 """
 
 from __future__ import annotations
@@ -24,7 +26,10 @@ from ..camera import Camera, Input
 from ..config import RenderConfig
 from ..golden import render_frame as golden_render
 from ..models import SCENES
-from ..renderer import BACKENDS, Renderer
+from ..renderer import BACKENDS, NATIVE, Renderer
+
+# Every backend of ``Renderer``: the device ones, then the host core.
+ALL_BACKENDS = (*BACKENDS, NATIVE)
 
 BOUND = {"nearest": 0.002, "bilinear": 0.003}
 
@@ -41,12 +46,12 @@ def mismatch(a: np.ndarray, b: np.ndarray, tol: int = 1) -> float:
 def compare(scene, width: int, height: int, *, device="cuda",
             config: RenderConfig = RenderConfig()) -> Dict[str, dict]:
     """Golden's host ms, and each backend's ms and mismatch against golden
-    at the identity camera."""
+    at the identity camera (``native`` on the host whatever ``device``)."""
     m = Camera().update(Input(), force_update=True)
     t0 = time.perf_counter()
     golden_px, _ = golden_render(scene, m, width, height, config)
     out = {"golden": {"ms": (time.perf_counter() - t0) * 1e3}}
-    for backend in BACKENDS:
+    for backend in ALL_BACKENDS:
         r = Renderer(scene, config, device=device, backend=backend)
         r.render(m, width, height)          # build / capture
         t0 = time.perf_counter()
@@ -70,10 +75,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                   config=RenderConfig(sampling=args.sampling))
     print(f"golden (NumPy oracle): {res['golden']['ms']:8.1f} ms")
     ok = True
-    for backend in BACKENDS:
+    for backend in ALL_BACKENDS:
         r = res[backend]
         ok &= r["mismatch"] < BOUND[args.sampling]
-        print(f"{backend} ({args.device}, {args.sampling}) {r['ms']:8.1f} ms   "
+        where = "host" if backend == NATIVE else args.device
+        print(f"{backend} ({where}, {args.sampling}) {r['ms']:8.1f} ms   "
               f"pixel mismatch vs golden: {r['mismatch'] * 100:.3f}%")
     return 0 if ok else 1
 

@@ -40,6 +40,16 @@ Winner ids. With ``track_ids=True`` a kernel also writes each pixel's
 winner's row ``_GID`` value (``pack_setup_tables``' ``gids``), -1 where
 nothing covers: the third output plane of the JAX kernel's ``track_ids`` form,
 the key by which passes and devices merge (``rasterize(gids=...)``).
+
+Timing forms. ``phases`` (``PHASES``) is the JAX kernel's timing instrument
+(raster_pallas.py:250-258, read by ``tools.perf_probe``): ``"full"`` renders
+the frame; ``"vis"`` stops after visibility and writes each pixel's winning
+slot (-1 where nothing covers) to the pixel plane and its 1/z to depth;
+``"shade"`` stops before the texel fetch: flat-coloured winners hold their
+packed colour, textured winners the background. Only ``"full"`` is a frame.
+A wrapper counts the launches of these forms in ``.launches_vis`` and
+``.launches_shade``, apart from the full forms' ``.launches`` and
+``.launches_ids``.
 """
 
 from __future__ import annotations
@@ -66,6 +76,8 @@ _XMIN, _XMAX, _YMIN, _YMAX, _TEXBASE, _ISTEX, _GID = 0, 1, 2, 3, 4, 5, 6
 _I32_ROWS = 7
 
 SAMPLINGS = ("nearest", "bilinear")
+# The kernels' forms, in the order of csrc/raster.cu's kFull, kVis, kShade.
+PHASES = ("full", "vis", "shade")
 
 # The port's pixel tile: one warp spans one 32-pixel row, so output stores
 # coalesce; 1080 and 2160 are multiples of 8, so the common frames have no
@@ -512,17 +524,22 @@ def _check_sampling(sampling: str) -> None:
 
 def shade_plain(best: torch.Tensor, win: torch.Tensor, trf: torch.Tensor,
                 tri: torch.Tensor, textures: torch.Tensor, *, background: int,
-                sampling: str = "nearest", y_offset: int = 0) -> torch.Tensor:
+                sampling: str = "nearest", y_offset: int = 0,
+                fetch: bool = True) -> torch.Tensor:
     """Phases 2 and 3 for every pixel of one frame (or of the band that
     starts at row ``y_offset``) that has a winner: the flat color pack, or
     the nearest or bilinear texel fetch and shade multiply. Background
-    elsewhere. Returns packed pixels (H, W) int32."""
+    elsewhere. Returns packed pixels (H, W) int32. ``fetch=False`` stops
+    before phase 3, as the ``"shade"`` form does: textured winners hold the
+    background."""
     _check_sampling(sampling)
     pix = torch.full(best.shape, background, dtype=torch.int32,
                      device=best.device)
     yy, xx, sh, out, tx, tex, uv, level = _shade_winners(best, win, trf, tri,
                                                          y_offset)
-    if bool(tx.any()):
+    if not fetch:
+        out[tx] = background
+    elif bool(tx.any()):
         sample = sample_ripmap if sampling == "nearest" else sample_ripmap_bilinear
         rgb = sample(textures, tex, uv, level)
         out[tx] = _pack(sh[tx], rgb[:, 0], rgb[:, 1], rgb[:, 2])
@@ -553,21 +570,34 @@ def _over_frames(frame, per_frame, trf):
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
+def _check_phases(phases: str) -> None:
+    if phases not in PHASES:
+        raise ValueError(f"phases={phases!r}: the kernels' forms are "
+                         f"{', '.join(PHASES)}")
+
+
 def _plain_outputs(best, win, trf, tri, textures, *, background, sampling,
-                   y_offset, track_ids):
-    """Phases 2-3 of one frame from its phase 1: (pixels, depth[, gids])."""
-    pix = shade_plain(best, win, trf, tri, textures, background=background,
-                      sampling=sampling, y_offset=y_offset)
+                   y_offset, track_ids, phases):
+    """Phases 2-3 of one frame from its phase 1: (pixels, depth[, gids]);
+    the ``"vis"`` form's pixels are the winning slots."""
+    if phases == "vis":
+        pix = win
+    else:
+        pix = shade_plain(best, win, trf, tri, textures, background=background,
+                          sampling=sampling, y_offset=y_offset,
+                          fetch=phases == "full")
     return (pix, best, _gid_plane(win, tri)) if track_ids else (pix, best)
 
 
 def raster_flat_plain(counts, ids, trf, tri, textures, *, width: int,
                       height: int, background: int, sampling: str,
-                      y_offset: int = 0, track_ids: bool = False):
+                      y_offset: int = 0, track_ids: bool = False,
+                      phases: str = "full"):
     """Plain PyTorch version of the flat kernels: same inputs, same (pixels
     (..., H, W) int32, depth (..., H, W) f32[, gids (..., H, W) int32]),
-    over rows [y_offset, y_offset + H)."""
+    over rows [y_offset, y_offset + H), in the form ``phases``."""
     _check_band(y_offset)
+    _check_phases(phases)
 
     def frame(c, i, f, t):
         if track_ids:
@@ -576,7 +606,7 @@ def raster_flat_plain(counts, ids, trf, tri, textures, *, width: int,
                                      y_offset=y_offset)
         return _plain_outputs(best, win, f, t, textures, background=background,
                               sampling=sampling, y_offset=y_offset,
-                              track_ids=track_ids)
+                              track_ids=track_ids, phases=phases)
 
     return _over_frames(frame, (counts, ids, trf, tri), trf)
 
@@ -700,13 +730,15 @@ def visibility_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
 def raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box, trf,
                            tri, rec, textures, *, width: int, height: int,
                            background: int, sampling: str, g: int = SEG_G,
-                           y_offset: int = 0, track_ids: bool = False):
+                           y_offset: int = 0, track_ids: bool = False,
+                           phases: str = "full"):
     """Plain PyTorch version of the segmented kernels: same inputs, same
     (pixels (..., H, W) int32, depth (..., H, W) f32[, gids (..., H, W)
-    int32]), over rows [y_offset, y_offset + H). ``bb_box`` and ``rec`` are
-    checked for their shapes and otherwise unread: the plain version reads
-    the tables."""
+    int32]), over rows [y_offset, y_offset + H), in the form ``phases``.
+    ``bb_box`` and ``rec`` are checked for their shapes and otherwise unread:
+    the plain version reads the tables."""
     _check_band(y_offset)
+    _check_phases(phases)
     lead, s = tuple(trf.shape[:-2]), trf.shape[-1]
     for name, t, words in (("bb_box", bb_box, 4), ("rec", rec, REC_WORDS)):
         if tuple(t.shape) != (*lead, s, words):
@@ -722,7 +754,7 @@ def raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box, trf,
                                                g=g, y_offset=y_offset)
         return _plain_outputs(best, win, f, t, textures, background=background,
                               sampling=sampling, y_offset=y_offset,
-                              track_ids=track_ids)
+                              track_ids=track_ids, phases=phases)
 
     return _over_frames(frame, (ids, starts, counts, bb, bb_count, trf, tri),
                         trf)
@@ -751,8 +783,8 @@ def raster_segmented_bilinear_plain(ids, starts, counts, bb, bb_count, bb_box,
 def _kernel(name: str, pointers: int, ints: int):
     """The C entry point ``name``: ``pointers`` device pointers (the last,
     the gid plane, may be null), then ``ints`` ints (B, S, [entries per
-    frame, the super-tile edge G,] the texture count, width, height, y0 and
-    background), then the stream."""
+    frame, the super-tile edge G,] the texture count, width, height, y0,
+    background and the form, ``PHASES.index(phases)``), then the stream."""
     fn = getattr(kernels.library(), name)
     fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                    + [ctypes.c_void_p])
@@ -785,11 +817,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
             width: int, height: int, background: int, y_offset: int,
-            track_ids: bool):
+            track_ids: bool, phases: str):
     """Allocate the (..., H, W) outputs and launch ``wrapper``'s kernel on
     the tensors' card over the frames' tiles, in its tracking form when
-    ``track_ids`` (a gid plane is passed) or not (a null pointer); raise if
-    the launch was refused, else count it. Under CUDA graph capture the
+    ``track_ids`` (a gid plane is passed) or not (a null pointer) and in the
+    form ``phases``; raise if the launch was refused, else count it: a full
+    form in ``.launches`` or ``.launches_ids``, a timing form in
+    ``.launches_vis`` or ``.launches_shade``. Under CUDA graph capture the
     launch goes into the graph and counts once; replays are not counted."""
     dev = textures.device
     outs = [torch.empty((*lead, height, width), dtype=dt, device=dev)
@@ -797,14 +831,17 @@ def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
     ptrs = [t.data_ptr() for t in (*inputs, textures, *outs)]
     ptrs += [] if track_ids else [None]
     ints = (math.prod(lead), *ints, textures.shape[0], width, height, y_offset,
-            background)
+            background, PHASES.index(phases))
     name = wrapper.__name__
     with torch.cuda.device(dev):   # the launch goes to the tensors' card
         err = _kernel(name, len(ptrs), len(ints))(
             *ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: {kernels.error_string(err)}")
-    if track_ids:
+    if phases != "full":
+        setattr(wrapper, f"launches_{phases}",
+                getattr(wrapper, f"launches_{phases}") + 1)
+    elif track_ids:
         wrapper.launches_ids += 1
     else:
         wrapper.launches += 1
@@ -812,9 +849,9 @@ def _launch(wrapper, inputs, textures: torch.Tensor, lead, ints, *,
 
 
 def _raster_flat(wrapper, sampling, counts, ids, trf, tri, textures, *,
-                 width, height, background, y_offset, track_ids):
+                 width, height, background, y_offset, track_ids, phases):
     kw = dict(width=width, height=height, background=background,
-              y_offset=y_offset, track_ids=track_ids)
+              y_offset=y_offset, track_ids=track_ids, phases=phases)
     dev = trf.device
     if dev.type == "cpu":
         return raster_flat_plain(counts, ids, trf, tri, textures,
@@ -822,6 +859,7 @@ def _raster_flat(wrapper, sampling, counts, ids, trf, tri, textures, *,
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
     _check_band(y_offset)
+    _check_phases(phases)
     lead, s = _frame_dims(trf)
     if s > FLAT_MAX_SLOTS:
         raise ValueError(f"{wrapper.__name__}: {s} slots, past the flat "
@@ -842,7 +880,7 @@ def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
                         trf: torch.Tensor, tri: torch.Tensor,
                         textures: torch.Tensor, *, width: int, height: int,
                         background: int, y_offset: int = 0,
-                        track_ids: bool = False):
+                        track_ids: bool = False, phases: str = "full"):
     """Visibility, deferred shading and nearest texel fetch for one frame or
     a batch, in one launch.
 
@@ -856,41 +894,44 @@ def raster_flat_nearest(counts: torch.Tensor, ids: torch.Tensor,
     rows [y_offset, y_offset + H); with ``track_ids`` also the winners' row
     _GID values (..., H, W) int32, -1 where empty, whose precondition
     (``_check_gid_order``: gids ascend with slot order among live slots) the
-    plain version checks.
+    plain version checks. ``phases`` picks the form (``PHASES``): the timing
+    forms ``"vis"`` and ``"shade"`` stop early (the module's docstring).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     ``raster_flat_nearest.launches`` counts the kernel's launches, and
     ``.launches_ids`` those of its tracking form: each call that launches,
     eagerly or into a CUDA graph being captured (counted once, at capture;
     the graph's replays launch without the wrapper, and
-    ``graphs.FrameGraphs.replays`` counts those).
+    ``graphs.FrameGraphs.replays`` counts those); ``.launches_vis`` and
+    ``.launches_shade`` those of the timing forms.
     """
     return _raster_flat(raster_flat_nearest, "nearest", counts, ids, trf, tri,
                         textures, width=width, height=height,
                         background=background, y_offset=y_offset,
-                        track_ids=track_ids)
+                        track_ids=track_ids, phases=phases)
 
 
 def raster_flat_bilinear(counts: torch.Tensor, ids: torch.Tensor,
                          trf: torch.Tensor, tri: torch.Tensor,
                          textures: torch.Tensor, *, width: int, height: int,
                          background: int, y_offset: int = 0,
-                         track_ids: bool = False):
+                         track_ids: bool = False, phases: str = "full"):
     """``raster_flat_nearest`` with the bilinear texel fetch: the four taps
     of ``ops.texture.bilinear_taps``, blended as float channels before the
-    shade multiply. ``raster_flat_bilinear.launches`` and ``.launches_ids``
-    count its launches, a captured one once, at capture."""
+    shade multiply. ``raster_flat_bilinear.launches``, ``.launches_ids``,
+    ``.launches_vis`` and ``.launches_shade`` count its launches, a captured
+    one once, at capture."""
     return _raster_flat(raster_flat_bilinear, "bilinear", counts, ids, trf,
                         tri, textures, width=width, height=height,
                         background=background, y_offset=y_offset,
-                        track_ids=track_ids)
+                        track_ids=track_ids, phases=phases)
 
 
 def _raster_segmented(wrapper, sampling, ids, starts, counts, bb, bb_count,
                       bb_box, trf, tri, rec, textures, *, width, height,
-                      background, g, y_offset, track_ids):
+                      background, g, y_offset, track_ids, phases):
     kw = dict(width=width, height=height, background=background,
-              y_offset=y_offset, track_ids=track_ids)
+              y_offset=y_offset, track_ids=track_ids, phases=phases)
     dev = trf.device
     if dev.type == "cpu":
         return raster_segmented_plain(ids, starts, counts, bb, bb_count, bb_box,
@@ -899,6 +940,7 @@ def _raster_segmented(wrapper, sampling, ids, starts, counts, bb, bb_count,
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {dev}")
     _check_band(y_offset)
+    _check_phases(phases)
     if g < 1:
         raise ValueError(f"g={g}: a super-tile holds at least one tile")
     lead, s = _frame_dims(trf)
@@ -930,7 +972,7 @@ def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
                              rec: torch.Tensor, textures: torch.Tensor, *,
                              width: int, height: int, background: int,
                              g: int = SEG_G, y_offset: int = 0,
-                             track_ids: bool = False):
+                             track_ids: bool = False, phases: str = "full"):
     """Visibility over each tile's segment, its super-tile's segment and the
     residual broadband list, deferred shading and nearest texel fetch for
     one frame or a batch, in one launch.
@@ -944,18 +986,20 @@ def raster_segmented_nearest(ids: torch.Tensor, starts: torch.Tensor,
     every frame. The leading axis, where present, is the batch B. Returns
     (pixels (..., H, W) int32 holding 0x00RRGGBB, depth (..., H, W) f32 =
     1/z, 0 where empty[, gids (..., H, W) int32 with ``track_ids``]), equal
-    to ``raster_flat_nearest`` on the same setup table.
+    to ``raster_flat_nearest`` on the same setup table, in each form
+    ``phases``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
-    ``raster_segmented_nearest.launches`` counts the kernel's launches, and
-    ``.launches_ids`` those of its tracking form, a captured one once, at
+    ``raster_segmented_nearest.launches`` counts the kernel's launches,
+    ``.launches_ids`` those of its tracking form and ``.launches_vis`` and
+    ``.launches_shade`` those of the timing forms, a captured one once, at
     capture (a graph's replays are not counted here).
     """
     return _raster_segmented(raster_segmented_nearest, "nearest", ids, starts,
                              counts, bb, bb_count, bb_box, trf, tri, rec,
                              textures, width=width, height=height,
                              background=background, g=g, y_offset=y_offset,
-                             track_ids=track_ids)
+                             track_ids=track_ids, phases=phases)
 
 
 def raster_segmented_bilinear(ids: torch.Tensor, starts: torch.Tensor,
@@ -965,22 +1009,25 @@ def raster_segmented_bilinear(ids: torch.Tensor, starts: torch.Tensor,
                               rec: torch.Tensor, textures: torch.Tensor, *,
                               width: int, height: int, background: int,
                               g: int = SEG_G, y_offset: int = 0,
-                              track_ids: bool = False):
+                              track_ids: bool = False, phases: str = "full"):
     """``raster_segmented_nearest`` with the bilinear texel fetch, equal to
     ``raster_flat_bilinear`` on the same setup table.
-    ``raster_segmented_bilinear.launches`` and ``.launches_ids`` count its
-    launches, a captured one once, at capture."""
+    ``raster_segmented_bilinear.launches``, ``.launches_ids``,
+    ``.launches_vis`` and ``.launches_shade`` count its launches, a captured
+    one once, at capture."""
     return _raster_segmented(raster_segmented_bilinear, "bilinear", ids, starts,
                              counts, bb, bb_count, bb_box, trf, tri, rec,
                              textures, width=width, height=height,
                              background=background, g=g, y_offset=y_offset,
-                             track_ids=track_ids)
+                             track_ids=track_ids, phases=phases)
 
 
 for _wrapper in (raster_flat_nearest, raster_flat_bilinear,
                  raster_segmented_nearest, raster_segmented_bilinear):
     _wrapper.launches = 0
     _wrapper.launches_ids = 0
+    _wrapper.launches_vis = 0
+    _wrapper.launches_shade = 0
 
 _FLAT = {"nearest": raster_flat_nearest, "bilinear": raster_flat_bilinear}
 _SEGMENTED = {"nearest": raster_segmented_nearest,
@@ -1005,7 +1052,8 @@ def _frames_per_launch(s: int, width: int, height: int) -> int:
 
 def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
               width: int, height: int, background: int,
-              sampling: str = "nearest", gids=None, y_offset: int = 0):
+              sampling: str = "nearest", gids=None, y_offset: int = 0,
+              phases: str = "full"):
     """Bin, pack and rasterize one frame, or a batch (setup arrays with a
     leading B), in one kernel launch: (pixels (..., H, W) int32, depth (...,
     H, W) f32) for framebuffer rows [y_offset, y_offset + H). The host side
@@ -1018,8 +1066,11 @@ def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
     With ``gids`` ((S,) or (..., S) int32, ascending with slot order among
     live slots) the launch tracks winners and a third plane holds each
     pixel's winner's gid, NO_GID where depth is 0: the single-pass
-    counterpart of ``_rasterize_compacted_ids``."""
+    counterpart of ``_rasterize_compacted_ids``. ``phases`` picks the
+    kernels' form (``PHASES``; the JAX ``rasterize_pallas(phases=)``): the
+    timing forms give the planes the module's docstring describes."""
     _check_sampling(sampling)
+    _check_phases(phases)
     live = setup["live"]
     per = _frames_per_launch(live.shape[-1], width, height)
     if live.dim() == 2 and live.shape[0] > per:
@@ -1028,12 +1079,13 @@ def rasterize(setup: Dict[str, torch.Tensor], textures: torch.Tensor, *,
             {k: v[i:i + per] for k, v in setup.items()}, textures, width=width,
             height=height, background=background, sampling=sampling,
             gids=gids if gids is None or gids.dim() == 1 else gids[i:i + per],
-            y_offset=y_offset) for i in range(0, live.shape[0], per)]
+            y_offset=y_offset, phases=phases)
+            for i in range(0, live.shape[0], per)]
         return tuple(torch.cat(p) for p in zip(*parts))
     trf, tri = pack_setup_tables(setup, gids)
     track = gids is not None
     kw = dict(width=width, height=height, background=background,
-              y_offset=y_offset, track_ids=track)
+              y_offset=y_offset, track_ids=track, phases=phases)
     if trf.shape[-1] <= FLAT_MAX_SLOTS:
         ids, counts = bin_triangles(setup, width=width, height=height,
                                     tile_h=TILE_H, tile_w=TILE_W,

@@ -24,7 +24,9 @@ hand-written raster kernels (their plain versions on the CPU), and
 ``"xla"``, ``ops.raster_xla``, the JAX package's portable banded rasterizer
 in torch ops (``render_frame_xla``), on the same device. The JAX
 ``Renderer`` defaults to its ``"xla"`` backend; the port's defaults to
-``"cuda"``.
+``"cuda"``. ``Renderer(scene, backend="native")`` renders on the host
+through the C++ core of ``native/`` instead (``native.NativeRenderer``), as
+the JAX ``Renderer`` does; only a caller that names it gets it.
 
 ``render_range`` renders one triangle range of a frame with its winners'
 global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
@@ -49,6 +51,8 @@ from .ops.vertex import project, transform_normals, transform_points
 from .utils.databin import Scene
 
 BACKENDS = ("cuda", "xla")
+# The host backend: only ``Renderer`` takes it, never a device path.
+NATIVE = "native"
 
 
 def check_backend(backend: str) -> None:
@@ -298,6 +302,10 @@ class Renderer:
     renderer's lifetime. ``backend`` picks the rasterizer on that device:
     ``"cuda"`` (the hand-written kernels; the default) or ``"xla"``
     (``ops.raster_xla``); the JAX ``Renderer``'s default is ``"xla"``.
+    ``backend="native"`` renders on the host with the native C++ core
+    (``native.NativeRenderer``, built at first use) whatever ``device``: the
+    renderer holds no device tensors, ``render`` returns the core's frame,
+    and ``render_device``, ``render_batch`` and ``update_scene`` raise.
 
     On the card every call replays a CUDA graph, captured at the first call
     of its key: (W, H, B), or with ``bucketed=True`` the bucket (bw, bh, B)
@@ -309,9 +317,15 @@ class Renderer:
     def __init__(self, scene: Scene, config: RenderConfig = DEFAULT_CONFIG,
                  device="cuda", backend: str = "cuda") -> None:
         scene.validate()
-        check_backend(backend)
         self.config = config
         self.backend = backend
+        if backend == NATIVE:
+            from .native import NativeRenderer
+
+            self._native = NativeRenderer(scene, config=config)
+            self.device = self.dev = self.graphs = None
+            return
+        check_backend(backend)
         self.device = resolve_device(device)
         self.dev = scene_to_device(scene, self.device)
         # Host copies of the fixed topology, for update_scene.
@@ -352,6 +366,10 @@ class Renderer:
             pix, depth = self.graphs.run(key, frame, inputs)
         return pix[:, :height, :width], depth[:, :height, :width]
 
+    def _device_backend(self) -> None:
+        if self.backend == NATIVE:
+            raise ValueError("the native backend renders on host; use render()")
+
     def _owned(self, *planes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return planes if self.graphs is None else tuple(
             p.clone() for p in planes)
@@ -360,6 +378,7 @@ class Renderer:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Render, leaving (pixels (H, W) int32, depth (H, W) f32) on the
         device."""
+        self._device_backend()
         m = np.asarray(camera_matrix, np.float32)
         if m.shape != (3, 4):
             raise ValueError(f"need a (3, 4) matrix, got {m.shape}")
@@ -376,6 +395,8 @@ class Renderer:
         m = np.asarray(camera_matrix, np.float32)
         if m.shape != (3, 4):
             raise ValueError(f"need a (3, 4) matrix, got {m.shape}")
+        if self.backend == NATIVE:
+            return self._native.render(m, width, height)
         pix, depth = self._frames(m[None], width, height, bucketed)
         return pix[0].cpu().numpy().view(np.uint32), depth[0].cpu().numpy()
 
@@ -384,6 +405,7 @@ class Renderer:
         """Render a batch of camera poses ((B, 3, 4)) in one raster launch —
         the serving path (``Renderer.render_batch`` of the JAX package).
         Returns device tensors: pixels (B, H, W) int32, depth (B, H, W) f32."""
+        self._device_backend()
         ms = np.asarray(matrices, np.float32)
         if ms.ndim != 3 or ms.shape[1:] != (3, 4):
             raise ValueError(f"need a (B, 3, 4) batch of matrices, got {ms.shape}")
@@ -397,6 +419,8 @@ class Renderer:
         topology and the textures are fixed per Renderer. The corner-major
         arrays are written in place, so every captured graph reads the new
         scene at its next replay."""
+        if self.backend == NATIVE:
+            raise ValueError("scene animation requires a device backend")
         for name, arr, cname, idx in (
                 ("vertices", vertices, "vert_c", self._host_vi),
                 ("normals", normals, "norm_c", self._host_ai),

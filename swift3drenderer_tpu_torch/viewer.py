@@ -271,7 +271,10 @@ def run_serve(scene, *, width: int, height: int, backend: str = "cuda",
               config=None, host: str = "127.0.0.1", port: int = 8000,
               fps: float = 60.0, max_frames: int = 0,
               gamepad: Optional[str] = None, device="cuda") -> int:
-    """Entry point for ``python -m swift3drenderer_tpu_torch.app --serve``."""
+    """Entry point for ``python -m swift3drenderer_tpu_torch.app --serve``.
+    ``backend`` goes to the frame loop as it is: ``"cuda"``, ``"xla"`` or
+    the host's ``"native"`` (which renders every size as it comes, without
+    buckets)."""
     from .config import DEFAULT_CONFIG
     from .utils.telemetry import FrameStats
 

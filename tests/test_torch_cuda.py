@@ -17,8 +17,10 @@ of one rank, and each block of an emulated 2 x 4 grid) against its eager
 block; ``render_scene_sharded`` replayed from its graph cache (on an NCCL
 world of one rank, and each rank's range of emulated meshes) against
 ``render_device`` and its eager range; ``ShardedRenderer(backend="xla")``
-against ``Renderer(backend="xla")``; and ``entry.dryrun_multichip`` on
-every card.
+against ``Renderer(backend="xla")``; ``entry.dryrun_multichip`` on
+every card; the kernels' timing forms (``phases="vis"`` and ``"shade"``)
+against their plain versions, and the stage probe's graphs
+(``tools.perf_probe.Stages``) against the renderer's frame.
 
 Each test needs a CUDA card (and nvcc, which builds the kernel at first use)
 and skips without one. The file imports neither JAX nor the JAX package, so it
@@ -950,3 +952,70 @@ def test_dryrun_multichip_on_cuda():
     out = dryrun_multichip(n)
     assert len(out["launches"]) == n and out["device"] == "cuda"
     assert all(sum(x.values()) > 0 for x in out["launches"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["flat", "segmented"])
+def test_timing_forms_match_plain_on_cuda(route):
+    """Each kernel's ``"vis"`` and ``"shade"`` forms, both samplings,
+    untracked and tracked, against their plain versions bit for bit; each
+    launch counted in its wrapper's ``.launches_vis`` or
+    ``.launches_shade`` alone."""
+    need_card()
+    scene = (SCENES["default"](seed=0) if route == "flat"
+             else SCENES["stress"](seed=0, objects=128))
+    dev = scene_to_device(scene, "cuda")
+    setup = build_setup(dev, torch.as_tensor(flight(3)[2], device="cuda"),
+                        width=W, height=H, config=port.DEFAULT_CONFIG)
+    gids = 1000 + torch.arange(setup["live"].shape[-1], dtype=torch.int32,
+                               device="cuda")
+    for sampling in tr.SAMPLINGS:
+        kernel = getattr(tr, f"raster_{route}_{sampling}")
+        plain = getattr(tr, f"raster_{route}_{sampling}_plain")
+        for track in (False, True):
+            trf, tri = tr.pack_setup_tables(setup, gids if track else None)
+            if route == "flat":
+                ids, counts = tr.bin_triangles(setup, width=W, height=H,
+                                               tile_h=tr.TILE_H,
+                                               tile_w=tr.TILE_W)
+                args = (counts, ids, trf, tri)
+            else:
+                args = (*tr.bin_segments(setup, width=W, height=H), trf, tri,
+                        tr.pack_slot_records(setup))
+            for phases in ("vis", "shade"):
+                kw = dict(width=W, height=H, background=BG, track_ids=track,
+                          phases=phases)
+                before = (kernel.launches, kernel.launches_ids,
+                          kernel.launches_vis, kernel.launches_shade)
+                got = kernel(*args, dev["textures"], **kw)
+                torch.cuda.synchronize()
+                want = plain(*args, dev["textures"], **kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+                vis = phases == "vis"
+                assert (kernel.launches, kernel.launches_ids,
+                        kernel.launches_vis, kernel.launches_shade) == (
+                    before[0], before[1], before[2] + vis,
+                    before[3] + (not vis))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["default", "stress"])
+def test_stage_probe_replays_the_frame_on_cuda(name):
+    """``perf_probe.Stages`` on the card: the full stage's replayed graph is
+    ``Renderer.render_device``'s frame, the grid stage the background; the
+    probe gives every stage, each >= 0."""
+    from swift3drenderer_tpu_torch.tools import perf_probe
+    need_card()
+    scene = (SCENES["default"](seed=0) if name == "default"
+             else SCENES["stress"](seed=0, objects=128))
+    stages = perf_probe.Stages(scene, W, H, device="cuda")
+    r = port.Renderer(scene, device="cuda")
+    for m in flight(4)[1:]:
+        pix, depth = (t.clone() for t in stages.run("full", m))
+        want = r.render_device(m, W, H)
+        assert torch.equal(pix, want[0]) and torch.equal(depth, want[1])
+        grid = stages.run("grid", m)
+        assert bool((grid[0] == BG).all()) and bool((grid[1] == 0).all())
+    ms = stages.times(perf_probe.PROBE_STAGES, perf_probe.flight(3))
+    assert set(ms) == set(perf_probe.PROBE_STAGES)
+    assert all(v >= 0 for v in ms.values())
