@@ -1,0 +1,3 @@
+"""device.idle_share.batch: see s3dbench/readers.py::idle_share."""
+
+from s3dbench.readers import idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""entry.host_us.frame: see s3dbench/readers.py::entry_host_us."""
+
+from s3dbench.readers import entry_host_us as read  # noqa: F401

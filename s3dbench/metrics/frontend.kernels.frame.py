@@ -1,0 +1,3 @@
+"""frontend.kernels.frame: see s3dbench/readers.py::frontend_kernels."""
+
+from s3dbench.readers import frontend_kernels as read  # noqa: F401

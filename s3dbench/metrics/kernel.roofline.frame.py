@@ -1,0 +1,3 @@
+"""kernel.roofline.frame: see s3dbench/readers.py::kernel_roofline."""
+
+from s3dbench.readers import kernel_roofline as read  # noqa: F401
