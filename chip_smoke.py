@@ -6,7 +6,7 @@
 Phases; any failed check raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from csrc/ (nvcc, sm_90a; one nvcc for each of
-     raster.cu and probes.cu, and for each measurement build of raster.cu,
+     raster.cu, frontend.cu and probes.cu, and for each measurement build of raster.cu,
      started together), printing each kernel's registers, shared memory and
      spills;
   3. hold each kernel against its plain PyTorch version on the card, bit for
@@ -34,8 +34,9 @@ Phases; any failed check raises and the script exits non-zero:
      full form's;
   4. drive the main paths through Renderer(..., device="cuda"), which
      captures each frame size and batch in a CUDA graph at its first call
-     and replays it, each with the launch counts of all four kernels set to
-     0 just before and read just after (a wrapper counts the warm-up launch
+     and replays it, each with the launch counts of all four kernels and of
+     the front-end kernel (one a graph) set to 0 just before and read just
+     after (a wrapper counts the warm-up launch
      and the captured one of each new graph; replays launch without it, and
      the renderer counts them): the default scene and the 840-object stress field over bench.py's
      20-pose flight at both sizes, stress100k over its first 5 poses at
@@ -181,6 +182,15 @@ Phases; any failed check raises and the script exits non-zero:
      default scene at 1920x1080 through Renderer(backend="native") within
      golden's 0.2 %, its host ms beside the card's captured frame, and
      tools.native_baseline at --frames-scale 1.
+ 12. the front-end kernel (run after phase 11, before phase 6):
+     ops.frontend.frontend_setup against its plain version on the card,
+     bit for bit and one launch a call, on the default scene and stress 840
+     at 1920x1080 (one frame) and 3840x2160 (B = 4); then both timed with
+     the L2 cache cold (a 2 GiB flush, which outlasts the wrapper's host
+     work) beside the least time of the bytes the kernel must move (the
+     corner arrays and matrices in, 48 words and two bytes a slot out, at
+     3.35 TB/s): the kernels line's frontend_setup rows, each with the
+     front-end's launches on the main paths of phases 4, 9 and 10.
 
 The line before the last is one JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
@@ -192,6 +202,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -218,6 +229,10 @@ KERNELS = ("raster_flat_nearest", "raster_segmented_nearest",
 # The kernels' tracking forms (the same wrappers with track_ids=True,
 # counted in .launches_ids).
 FORMS = KERNELS + tuple(f"{k}_ids" for k in KERNELS)
+# The front-end kernel (ops.frontend.frontend_setup, one launch a
+# build_setup on the card), counted beside the raster forms.
+FRONTEND = "frontend_setup"
+COUNTED = FORMS + (FRONTEND,)
 # Each form's name in a profiler trace (the template instance it launches:
 # <sampling, tracking, phases>, phases 0 the frame).
 TRACE_NAMES = {f"raster_{route}_{sampling}{ids}":
@@ -276,17 +291,22 @@ class SmokeFailure(Exception):
 
 
 def reset_launches(raster) -> None:
+    from swift3drenderer_tpu_torch.ops import frontend
     for k in KERNELS:
         for counter in ("launches", "launches_ids", "launches_vis",
                         "launches_shade"):
             setattr(getattr(raster, k), counter, 0)
+    frontend.frontend_setup.launches = 0
 
 
 def read_launches(raster) -> dict:
-    """Each form's launch count: a kernel's wrapper counts its plain launches
-    in .launches and its tracking ones in .launches_ids."""
+    """Each of COUNTED's launch counts: a raster kernel's wrapper counts its
+    plain launches in .launches and its tracking ones in .launches_ids; the
+    front-end's wrapper counts in .launches."""
+    from swift3drenderer_tpu_torch.ops import frontend
     out = {k: getattr(raster, k).launches for k in KERNELS}
     out.update({f"{k}_ids": getattr(raster, k).launches_ids for k in KERNELS})
+    out[FRONTEND] = frontend.frontend_setup.launches
     return out
 
 
@@ -1338,9 +1358,9 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
         torch.cuda.synchronize()
         got = read_launches(raster)
         print(f"app path {name}: launches {json.dumps(got)}", flush=True)
-        check(got == {k: want.get(k, 0) for k in FORMS},
+        check(got == {k: want.get(k, 0) for k in COUNTED},
               f"{name}: launches {got}, want {want}")
-        for k in FORMS:
+        for k in COUNTED:
             launches[k] += got[k]
         return out
 
@@ -1380,7 +1400,8 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
             pix, _ = counted("headless flight", lambda: app.run_headless(
                 scene, width=width, height=height, frames=APP_FRAMES,
                 script=APP_SCRIPT, out_dir=tmp, out_every=APP_OUT_EVERY,
-                stats=stats, device="cuda"), {"raster_flat_nearest": 2})
+                stats=stats, device="cuda"),
+                {"raster_flat_nearest": 2, FRONTEND: 2})
             ppms = sorted(os.listdir(tmp))
     finally:
         app.FrameLoop = WatchedLoop.__base__
@@ -1429,7 +1450,8 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
             out = os.path.join(tmp, f"frames_{name}")
             t0 = time.perf_counter()
             rc = counted(f"app.main {name}", lambda: app.main(
-                ["--scene", scene_arg, "--out", out] + size), {kernel: 2})
+                ["--scene", scene_arg, "--out", out] + size),
+                {kernel: 2, FRONTEND: 2})
             clis[f"app.main {name}"] = {
                 "rc": rc, "s": time.perf_counter() - t0,
                 "final_ppm": os.path.exists(os.path.join(out, "final.ppm"))}
@@ -1445,7 +1467,10 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
                     ["default", "{}x{}".format(*COMPARE_SIZE), "--device",
                      "cuda", "--sampling", sampling])
 
-        rc = counted(f"compare_backends {sampling}", compare_main, {kernel: 2})
+        # One graph captured on each device backend ("cuda" and "xla");
+        # the front-end runs in both, the raster kernel in the first.
+        rc = counted(f"compare_backends {sampling}", compare_main,
+                     {kernel: 2, FRONTEND: 4})
         lines = text.getvalue().splitlines()
         for line in lines:
             print(f"  {line}")
@@ -1453,7 +1478,8 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
         check(rc == 0, f"compare_backends {sampling}: a backend is past "
               f"golden's {GOLDEN_BOUND[sampling]}")
     fn, args = counted("entry", lambda: entry(device="cuda"), {})
-    px = counted("entry fn", lambda: fn(*args), {"raster_flat_nearest": 2})
+    px = counted("entry fn", lambda: fn(*args),
+                 {"raster_flat_nearest": 2, FRONTEND: 2})
     want, _ = args[0].render(args[1], 640, 480)
     check(np.array_equal(px.cpu().numpy().view(np.uint32), want),
           "entry(): fn(*args) differs from render")
@@ -1506,14 +1532,15 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
                   f"viewer: resize to {w}x{h} gave {px.shape}")
         torch.cuda.synchronize()
         got = read_launches(raster)
-        for k in FORMS:
+        for k in COUNTED:
             launches[k] += got[k]
         buckets = {bucket_dims(*s) for s in (VIEWER_START,) + VIEWER_SIZES}
         check(vloop.renderer.graphs.captures == len(buckets),
               f"viewer: {vloop.renderer.graphs.captures} graphs for "
               f"{len(buckets)} buckets")
-        check(got == {k: 2 * len(buckets) * (k == "raster_flat_nearest")
-                      for k in FORMS}, f"viewer launches {got}")
+        check(got == {k: 2 * len(buckets) * (k in ("raster_flat_nearest",
+                                                   FRONTEND))
+                      for k in COUNTED}, f"viewer launches {got}")
         cpu_px, _ = Renderer(scene, device="cpu").render(
             vloop.camera.matrix, *VIEWER_SIZES[-1])
         check(np.array_equal(px, cpu_px),
@@ -1555,7 +1582,8 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
                          else "default bilinear"]
         for w, h in RESOLUTIONS:
             pg, dg = counted(f"xla {sampling} {w}x{h}",
-                             lambda: card.render_device(pose, w, h), {})
+                             lambda: card.render_device(pose, w, h),
+                             {FRONTEND: 2})
             pc, dc = cpu.render(pose, w, h)
             to_cpu = compare(pg, dg, pc, dc,
                              f"xla card vs cpu {sampling} {w}x{h}")
@@ -1587,7 +1615,7 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
         frames[chunk] = counted(f"xla stress840 chunk {chunk}",
                                 lambda: render_frame_xla(
                                     sdev, m, width=w, height=h, config=cfg,
-                                    chunk=chunk), {})
+                                    chunk=chunk), {FRONTEND: 1})
     a, b = (frames[c] for c in XLA_STRESS_CHUNKS)
     check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
           "xla stress840: the frame depends on the chunk")
@@ -1655,6 +1683,75 @@ def app_phase(torch, scenes, poses, renderers, captured, launches) -> dict:
     check(0.75 * b2b < steady < 1.25 * b2b,
           f"steady state {steady} ms against back to back {b2b} ms")
     return summary
+
+
+# Phase 12: the front-end kernel's cells, (scene, size, B).
+FRONTEND_CELLS = (("default", (1920, 1080), 1), ("default", (3840, 2160), 4),
+                  ("stress840", (1920, 1080), 1),
+                  ("stress840", (3840, 2160), 4))
+
+
+def frontend_bytes(frontend, triangles: int, frames: int) -> int:
+    """The least bytes ``frontend_setup`` moves: each corner array word and
+    texture id read once, each frame's matrix, and every setup row of the
+    frames' 2T slots (48 words and two bytes a slot) written once."""
+    slot = sum(dtype.itemsize * math.prod(shape)
+               for _, dtype, shape in frontend.SETUP_KEYS)
+    return (triangles * (12 + 12 + 9 + 1) * 4 + frames * 12 * 4
+            + frames * 2 * triangles * slot)
+
+
+def frontend_phase(torch, arrays: dict, poses, card) -> list:
+    """Phase 12: ``ops.frontend.frontend_setup`` against its plain version
+    on the card, bit for bit (float bits as int32, so NaN compares too) and
+    one launch a call, then both timed with the L2 cache cold beside the
+    least time of the bytes the kernel must move, at each of
+    FRONTEND_CELLS. Returns the kernels line's rows."""
+    from swift3drenderer_tpu_torch.config import DEFAULT_CONFIG
+    from swift3drenderer_tpu_torch.ops import frontend
+
+    rows = []
+    for scene, (width, height), b in FRONTEND_CELLS:
+        arr = arrays[scene]
+        m = torch.as_tensor(np.stack(poses[:b]), device="cuda")
+        args = (arr["vert_c"], arr["norm_c"], arr["attr_c"], arr["tex_c"], m)
+        kw = dict(width=width, height=height,
+                  factor=DEFAULT_CONFIG.factor(height), half_w=width / 2.0,
+                  half_h=height / 2.0, near=DEFAULT_CONFIG.near,
+                  min_area=DEFAULT_CONFIG.min_area)
+        before = frontend.frontend_setup.launches
+        got = frontend.frontend_setup(*args, **kw)
+        check(frontend.frontend_setup.launches == before + 1,
+              "frontend_setup: not one launch a call")
+        want = frontend.frontend_setup_plain(*args, **kw)
+        for k, v in want.items():
+            bits = (lambda x: x.view(torch.int32)) if v.dtype == torch.float32 \
+                else (lambda x: x)
+            check(torch.equal(bits(got[k]), bits(v)),
+                  f"frontend_setup {scene} {width}x{height} B={b}: {k} is "
+                  "not the plain version's")
+        # The flush has to outlast the wrapper's host work (its checks and
+        # sixteen allocations, ~0.15 ms), or the span holds that work too: on
+        # an H100 a 512 MB flush read 14-157 µs where the kernel ran 7-10 µs.
+        kernel_ms = time_cold_ms(
+            torch, lambda: frontend.frontend_setup(*args, **kw),
+            flush_bytes=2 << 30)
+        plain_ms = time_cold_ms(torch, lambda: frontend.frontend_setup_plain(
+            *args, **kw), reps=20)
+        t = arr["vert_c"].shape[0]
+        bound = bound_of(frontend_bytes(frontend, t, b), 0)
+        row = {"kernel": "frontend_setup",
+               "replaces": "none (swift3drenderer_tpu/renderer.py::"
+                           "build_setup, left to XLA)",
+               "scene": scene, "size": [width, height], "batch": b,
+               "slots": 2 * t * b, "bit_equal": True, "card_ms": kernel_ms,
+               "plain_ms": plain_ms, **bound, "library_ms": None}
+        print(f"frontend_setup {scene} {width}x{height} B={b}: "
+              f"{kernel_ms:.5f} ms L2 cold, plain {plain_ms:.5f} ms, bound "
+              f"{bound['bound_ms']:.5f} ms ({bound['bytes']} bytes) on {card}",
+              flush=True)
+        rows.append(row)
+    return rows
 
 
 def stage_phase(torch, raster, scenes, renderers, errs, poses, card,
@@ -2184,29 +2281,31 @@ def run(parent: str | None = None) -> dict:
 
     # ---- 4. the main paths ----
     phase("4. main paths")
-    launches = {k: 0 for k in FORMS}
+    launches = {k: 0 for k in COUNTED}
 
     def counted(name, fn, want):
-        """``fn()`` with every form's launch count set to 0 just before and
+        """``fn()`` with every COUNTED launch count set to 0 just before and
         read just after: it must equal ``want`` ({form: launches})."""
         reset_launches(raster)
         out = fn()
         torch.cuda.synchronize()
         got = read_launches(raster)
         print(f"main path {name}: launches {json.dumps(got)}", flush=True)
-        check(got == {k: want.get(k, 0) for k in FORMS},
+        check(got == {k: want.get(k, 0) for k in COUNTED},
               f"{name}: launches {got}, want {want}")
-        for k in FORMS:
+        for k in COUNTED:
             launches[k] += got[k]
         return out
 
     def drive(name, renderer, runs, want, batch=0, min_drawn=0.2):
         """Render ``runs`` ((width, height), poses): frame by frame, or in
-        calls of ``batch`` poses through render_batch, with the four launch
-        counts set to 0 just before; check the counts just after against
-        ``want`` ({kernel: launches per captured graph}, each counted twice:
-        the graph's warm-up and its capture) and one replay a call, each
-        frame, and (batches) each frame against its single-frame render."""
+        calls of ``batch`` poses through render_batch, with the launch counts
+        set to 0 just before; check the counts just after against ``want``
+        ({kernel: launches per captured graph}, and one front-end launch a
+        graph; each counted twice: the graph's warm-up and its capture) and
+        one replay a call, each frame, and (batches) each frame against its
+        single-frame render."""
+        want = {FRONTEND: 1, **want}
         graphs = renderer.graphs
         captures, replays = graphs.captures, graphs.replays
         reset_launches(raster)
@@ -2231,10 +2330,10 @@ def run(parent: str | None = None) -> dict:
         check(new >= 1 and graphs.replays - replays == n,
               f"{name}: {new} captures and {graphs.replays - replays} "
               f"replays for {n} calls")
-        check(got == {k: 2 * want.get(k, 0) * new for k in FORMS},
+        check(got == {k: 2 * want.get(k, 0) * new for k in COUNTED},
               f"{name}: launches {got} for {new} captures, want {want} "
               "twice per capture")
-        for k in FORMS:
+        for k in COUNTED:
             launches[k] += got[k]
         for (w, h), (pix, depth) in frames:
             check(tuple(pix.shape) == (h, w) and pix.dtype == torch.int32,
@@ -2365,7 +2464,7 @@ def run(parent: str | None = None) -> dict:
                 arrays[name], ms4, width=width, height=height,
                 mesh=Mesh(*GRID, r, dev, None, None, None))
                 for r in range(GRID[0] * GRID[1])],
-            {form: GRID[0] * GRID[1]})
+            {form: GRID[0] * GRID[1], FRONTEND: GRID[0] * GRID[1]})
         rows = [(torch.cat([p for p, _ in blocks[f * GRID[1]:(f + 1) * GRID[1]]],
                            dim=1),
                  torch.cat([d for _, d in blocks[f * GRID[1]:(f + 1) * GRID[1]]],
@@ -2381,7 +2480,8 @@ def run(parent: str | None = None) -> dict:
                                                           None, None),
                                   device="cuda")
                   for r in range(GRID[0] * GRID[1])]
-        for turn, want in (("captured", {form: 2 * len(grid_r)}),
+        for turn, want in (("captured", {form: 2 * len(grid_r),
+                                         FRONTEND: 2 * len(grid_r)}),
                            ("replayed", {})):
             got = counted(
                 f"{name} ShardedRenderer {GRID[0]}x{GRID[1]} grid blocks "
@@ -2508,7 +2608,8 @@ def run(parent: str | None = None) -> dict:
     eager_b = render_batch_sharded(sharded_r.dev, ms4, width=width,
                                    height=height, mesh=mesh)
     held = []
-    for call, want in enumerate(({"raster_flat_nearest": 2}, {}, {})):
+    for call, want in enumerate(({"raster_flat_nearest": 2, FRONTEND: 2},
+                                 {}, {})):
         pix, depth = counted(
             f"default ShardedRenderer.render_batch, NCCL 1 x 1 mesh, call "
             f"{call}", lambda: sharded_r.render_batch(
@@ -2533,7 +2634,8 @@ def run(parent: str | None = None) -> dict:
 
     # ShardedRenderer(backend="xla"): the rank's block rasterized with
     # ops.raster_xla, captured at the first call and replayed at the second,
-    # bit-equal to Renderer(backend="xla").render_batch; no kernel launches.
+    # bit-equal to Renderer(backend="xla").render_batch; no raster kernel
+    # launches, and the front-end's at the capture.
     xla_sr = ShardedRenderer(scenes["default"], mesh=mesh, device="cuda",
                              backend="xla")
     xla_r = Renderer(scenes["default"], device="cuda", backend="xla")
@@ -2541,7 +2643,8 @@ def run(parent: str | None = None) -> dict:
         ms_x = np.stack(poses[4 * call:4 * call + 4])
         got = counted(f"default ShardedRenderer(backend=\"xla\") B=4 "
                       f"{XLA_BATCH_SIZE[0]}x{XLA_BATCH_SIZE[1]}, call {call}",
-                      lambda: xla_sr.render_batch(ms_x, *XLA_BATCH_SIZE), {})
+                      lambda: xla_sr.render_batch(ms_x, *XLA_BATCH_SIZE),
+                      {FRONTEND: 2} if call == 0 else {})
         compare(*got, *xla_r.render_batch(ms_x, *XLA_BATCH_SIZE),
                 f"ShardedRenderer(backend=\"xla\") call {call} vs "
                 "Renderer(backend=\"xla\").render_batch")
@@ -3261,7 +3364,7 @@ def run(parent: str | None = None) -> dict:
             reset_launches(raster)
             on_route(route, lambda: r.render_device(poses[0], width, height))
             got = read_launches(raster)
-            check(got[f"raster_{route}_nearest"] == 2,
+            check(got[f"raster_{route}_nearest"] == 2 and got[FRONTEND] == 2,
                   f"{route} route capture: launches {got}")
     captured_routes = []
     for width, height in RESOLUTIONS:
@@ -3374,10 +3477,10 @@ def run(parent: str | None = None) -> dict:
           flush=True)
     check(rc == 0, f"validation matrix: main returned {rc} (its FAIL lines "
           "above)")
-    check(all(got[k] > 0 for k in VALIDATE_FORMS),
+    check(all(got[k] > 0 for k in VALIDATE_FORMS + (FRONTEND,)),
           f"validation matrix: launches {got}, want each of "
-          f"{VALIDATE_FORMS} at least once")
-    for k in FORMS:
+          f"{VALIDATE_FORMS + (FRONTEND,)} at least once")
+    for k in COUNTED:
         launches[k] += got[k]
     print(f"validation matrix: ALL PASS on {card}", flush=True)
 
@@ -3386,6 +3489,10 @@ def run(parent: str | None = None) -> dict:
     phase("11. stage probes and the native core")
     timing_rows, probes, native_res = stage_phase(
         torch, raster, scenes, renderers, errs, poses, card, setup_of)
+
+    # ---- 12. the front-end kernel; before the profiles of phase 6 ----
+    phase("12. front-end kernel")
+    frontend_rows = frontend_phase(torch, arrays, poses, card)
 
     # ---- 6. device busy share of the flights, last: profiling leaves
     # host-side overhead behind it that would inflate the timings ----
@@ -3558,7 +3665,8 @@ def run(parent: str | None = None) -> dict:
         kernel_row("raster_segmented_bilinear",
                    "swift3drenderer_tpu/ops/raster_pallas.py:1132",
                    "stress840 bilinear"),
-    ] + [ids_row(k, ids_source) for k in KERNELS] + timing_rows + probe_rows
+    ] + [ids_row(k, ids_source) for k in KERNELS] + timing_rows + probe_rows \
+        + [dict(r, launches=launches[FRONTEND]) for r in frontend_rows]
     print(json.dumps({"bands": bands, "composites": sharded,
                       "per_range_ms": range_ms, "merge_ms": merge_ms,
                       "ab_parent": ab or "not measured",

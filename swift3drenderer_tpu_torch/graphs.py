@@ -3,9 +3,10 @@ of the executable cache ``jax.jit`` keeps for the JAX package's frame
 (``swift3drenderer_tpu.renderer``: one compile per size, or per resize
 bucket).
 
-A frame is some 360 small kernels (PERF.md §5). Launched eagerly they hold
-the card idle most of the frame; captured once and replayed, they go to the
-card as one graph launch. ``FrameGraphs`` keeps one graph per key (the
+A frame is some 40-75 small kernels (the front-end one launch, the binning
+and packing the rest; PERF.md §5). Launched eagerly they hold the card idle
+most of the frame; captured once and replayed, they go to the card as one
+graph launch. ``FrameGraphs`` keeps one graph per key (the
 renderer's keys: exact (W, H, B) or bucket (bw, bh, B)), each reading one
 static input buffer that every call overwrites before the replay.
 

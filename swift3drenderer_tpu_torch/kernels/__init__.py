@@ -4,10 +4,14 @@ Each source under ``csrc/`` is one library with a plain C interface (no
 PyTorch headers, so nvcc takes seconds), compiled at first use into
 ``swift3drenderer_tpu_torch/_build/<stem>-<hash>.so`` (listed in .gitignore),
 then loaded with ctypes. The hash covers the source and the flags, so an edit
-rebuilds. The sources:
+rebuilds. A frame launches both ``raster.cu`` and ``frontend.cu``
+(``FRAME``), so the first load of either starts both builds together. The
+sources:
 
 - ``raster.cu``: the four raster kernels, each with its winner-id tracking
   form (``library()``, the default);
+- ``frontend.cu``: the front-end of a frame in one launch
+  (``library("frontend.cu")``, ``ops.frontend.frontend_setup``);
 - ``probes.cu``: the texel-fetch and chunk-loop probes of
   ``swift3drenderer_tpu_torch.tools`` (``library("probes.cu")``).
 
@@ -29,8 +33,10 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 RASTER = "raster.cu"
+FRONTEND = "frontend.cu"
 PROBES = "probes.cu"
-SOURCES = (RASTER, PROBES)
+SOURCES = (RASTER, FRONTEND, PROBES)
+FRAME = (FRONTEND, RASTER)
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -90,10 +96,11 @@ def build(source: str = RASTER) -> str:
     return _finish(source, _start(source))
 
 
-def build_all() -> dict:
-    """Compile every source that is not current, one nvcc each, all started
-    together. Returns each source's nvcc output, as ``build``."""
-    started = {s: _start(s) for s in SOURCES}
+def build_all(sources=SOURCES) -> dict:
+    """Compile every source of ``sources`` (by default all) that is not
+    current, one nvcc each, all started together. Returns each source's nvcc
+    output, as ``build``."""
+    started = {s: _start(s) for s in sources}
     return {s: _finish(s, p) for s, p in started.items()}
 
 
@@ -101,8 +108,12 @@ def build_all() -> dict:
 def library(source: str = RASTER) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed: by
     default ``raster.cu`` (``raster_flat_nearest``, ``raster_flat_bilinear``,
-    ``raster_segmented_nearest``, ``raster_segmented_bilinear``)."""
-    build(source)
+    ``raster_segmented_nearest``, ``raster_segmented_bilinear``). A source
+    of ``FRAME`` is built together with the other."""
+    if source in FRAME:
+        build_all(FRAME)
+    else:
+        build(source)
     lib = ctypes.CDLL(library_path(source))
     lib.s3d_cuda_error_string.argtypes = [ctypes.c_int]
     lib.s3d_cuda_error_string.restype = ctypes.c_char_p

@@ -4,7 +4,8 @@ PyTorch.
 
   host: camera update (NumPy)  ->  (3, 4) matrix, or (B, 3, 4) batch, to the
         device
-  device: vertex + normal products -> near-plane clip prepass -> setup table
+  device: the front-end in one launch (``ops.frontend.frontend_setup``:
+  vertex + normal products, near-plane clip prepass, setup table)
   -> binning -> one raster kernel launch for the frame or the whole batch:
      raster_flat_{nearest,bilinear} for small scenes or
      raster_segmented_{nearest,bilinear} for large ones (visibility, shading,
@@ -30,11 +31,12 @@ the JAX ``Renderer`` does; only a caller that names it gets it.
 
 ``render_range`` renders one triangle range of a frame with its winners'
 global ids: the per-device pipeline of ``parallel.render_scene_sharded``.
+It runs the front-end stage by stage (``build_corners``, ``clip_prepass``,
+``triangle_setup``), the plain version's chain, on every device.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -44,6 +46,7 @@ from .config import DEFAULT_CONFIG, RenderConfig
 from .convert import device_arrays_from_numpy, resolve_device
 from .graphs import FrameGraphs
 from .ops.clip import clip_prepass
+from .ops.frontend import frontend_setup
 from .ops import raster_xla
 from .ops.raster import rasterize
 from .ops.setup import triangle_setup
@@ -163,15 +166,13 @@ def render_range(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, lo: int,
 def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width,
                 height, config: RenderConfig,
                 proj=None) -> Dict[str, torch.Tensor]:
-    """Geometry front-end: transforms, clip prepass, setup table.
+    """Geometry front-end: transforms, clip prepass, setup table, in one
+    launch of ``ops.frontend.frontend_setup`` on the card (its plain
+    version, the stage-by-stage chain, on the CPU).
 
     ``m`` is one (3, 4) matrix, or a (B, 3, 4) batch; then every setup array
     carries a leading B, and frame b's table equals ``build_setup`` of
-    ``m[b]`` alone, key for key and bit for bit. Only the vertex and normal
-    products differ per frame; the frames are flattened frame-major into the
-    triangle axis for the clip prepass and the setup table, which work per
-    triangle and per slot, so each frame keeps its own slots in their own
-    order (the order that decides depth ties).
+    ``m[b]`` alone, key for key and bit for bit.
 
     ``width``/``height`` may be 0-dim float32 tensors on the device (the
     bucketed frame); then pass the projection constants as ``proj =
@@ -182,26 +183,10 @@ def build_setup(dev: Dict[str, torch.Tensor], m: torch.Tensor, *, width,
         half_w, half_h = width / 2.0, height / 2.0
     else:
         factor, half_w, half_h = proj
-    t = dev["vert_c"].shape[0]
-    lead = tuple(m.shape[:-2])
-    nb = math.prod(lead)
-    cv_c = transform_points(dev["vert_c"].reshape(-1, 4), m)
-    rv_c = project(cv_c, factor, half_w, half_h)
-    nrm_c = transform_normals(dev["norm_c"].reshape(-1, 4), m)
-
-    def per_frame(x):            # (..., T*3, 3) -> (B*T, 3, 3)
-        return x.reshape(nb * t, 3, -1)
-
-    def shared(x):               # (T, ...) -> (B*T, ...)
-        return x.expand(nb, *x.shape).reshape(nb * t, *x.shape[1:])
-
-    corners = clip_prepass(
-        cv=per_frame(cv_c), rv=per_frame(rv_c), attr=shared(dev["attr_c"]),
-        n=per_frame(nrm_c), tex=shared(dev["tex_c"]),
-        near=config.near, factor=factor, half_w=half_w, half_h=half_h,
-    )
-    setup = triangle_setup(corners, width, height, config.min_area)
-    return {k: v.reshape(*lead, 2 * t, *v.shape[1:]) for k, v in setup.items()}
+    return frontend_setup(dev["vert_c"], dev["norm_c"], dev["attr_c"],
+                          dev["tex_c"], m, width=width, height=height,
+                          factor=factor, half_w=half_w, half_h=half_h,
+                          near=config.near, min_area=config.min_area)
 
 
 def render_frames(dev: Dict[str, torch.Tensor], ms: torch.Tensor, *,
