@@ -37,12 +37,15 @@ def control_readings(outcome: harness.Outcome, cell: spec.Cell) -> list:
     low = reference.Reference(outcome.scene, cell.config["render"], "cuda",
                               dtype=torch.bfloat16)
     out = []
-    for ms, _, _ in outcome.sample:
+    for ms, _, depth in outcome.sample:
         for m in ms:
             rp, rd, _ = ref.render(m, tr["width"], tr["height"], tr["sampling"])
             cp, cd, _ = low.render(m, tr["width"], tr["height"], tr["sampling"])
-            out.append(reference.mismatch(cp, cd, rp, rd, cell.check["tol"],
-                                          cell.check["rtol"]))
+            # Compared as the program's frames are: without depth where
+            # the program hands back none.
+            out.append(harness.compare(cell.check, cp,
+                                       None if depth is None else cd,
+                                       rp, rd, ref.background))
     return out
 
 

@@ -11,12 +11,17 @@ A traffic file's ``flight`` key fixes the walk: how many poses, the seed of
 the walk, how long a goal is held, the mouse's most a frame, and the box and
 view angles the goals lie in, so that the scene stays in view. The
 walk is the same for every run; the run's seed only orders it
-(``order``), so that every seed renders the same set of frames.
+(``order``), so that every seed renders the same set of frames. ``inputs``
+gives the walk as the app is driven: each frame's keys and accumulated
+mouse, and the camera before it; an app flies it in sequence, from a frame
+the seed draws, and the poses are the camera after each frame (``walk``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import List, Tuple
 
 import numpy as np
 
@@ -88,8 +93,25 @@ def _inside(pos: np.ndarray, box: dict) -> bool:
                for i, (lo, hi) in enumerate((box["x"], box["y"], box["z"])))
 
 
-def walk(spec: dict) -> np.ndarray:
-    """(spec["poses"], 3, 4) float32 poses of the seeded walk ``spec``.
+@dataclasses.dataclass(frozen=True)
+class Frame:
+    """One frame of the walk: the keys pressed (up, down, left, right), the
+    accumulated mouse position the app is given, and the camera before it."""
+
+    keys: Tuple[float, float, float, float]
+    mouse: np.ndarray
+    before: Camera
+
+    def after(self) -> Camera:
+        """The camera once this frame's input is applied."""
+        cam = self.before.copy()
+        cam.update(*self.keys, self.mouse)
+        return cam
+
+
+def inputs(spec: dict) -> List[Frame]:
+    """The spec["poses"] frames of the seeded walk ``spec``: the app's input
+    for each and the camera before it.
 
     The walk starts at the box's centre, looking along -z. It is a run of
     held goals, each lasting a number of frames drawn
@@ -102,10 +124,11 @@ def walk(spec: dict) -> np.ndarray:
     box = spec["box"]
     cam = Camera()
     cam.position = np.array([0.5 * sum(box[k]) for k in "xyz"], np.float32)
-    poses, hold = [], 0
+    frames: List[Frame] = []
+    hold = 0
     per_deg = 100.0 / ROTATION_SPEED * math.tan(math.radians(1.0))
     lim = np.asarray(spec["mouse"], np.float64)
-    while len(poses) < spec["poses"]:
+    while len(frames) < spec["poses"]:
         if hold == 0:
             hold = int(rng.integers(spec["hold"][0], spec["hold"][1] + 1))
             goal = np.array([rng.uniform(*box[k]) for k in "xyz"], np.float32)
@@ -119,15 +142,22 @@ def walk(spec: dict) -> np.ndarray:
                                        side < -0.3, side > 0.3))
         turn = np.clip(0.3 * per_deg * (view - np.array(cam.view_angles())),
                        -lim, lim).astype(np.float32)
-        nxt = cam.copy()
-        nxt.update(*keys, cam.mouse + turn)
+        frame = Frame(keys, cam.mouse + turn, cam)
+        nxt = frame.after()
         if not _inside(nxt.position, box):
-            nxt = cam.copy()
-            nxt.update(0.0, 0.0, 0.0, 0.0, cam.mouse + turn)
+            frame = Frame((0.0, 0.0, 0.0, 0.0), frame.mouse, cam)
+            nxt = frame.after()
+        frames.append(frame)
         cam = nxt
         hold -= 1
-        poses.append(cam.matrix())
-    return np.stack(poses).astype(np.float32)
+    return frames
+
+
+def walk(spec: dict) -> np.ndarray:
+    """(spec["poses"], 3, 4) float32 poses of the seeded walk ``spec``: the
+    camera after each frame of ``inputs``."""
+    return np.stack([f.after().matrix() for f in inputs(spec)]).astype(
+        np.float32)
 
 
 def order(n: int, seed: int) -> np.ndarray:

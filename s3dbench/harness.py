@@ -20,11 +20,13 @@
 5. one JSON line: the end-to-end metrics, or with ``--trace 1`` the
    per-layer ones, each read by ``metrics/<name>.py``.
 
-Two clients (the traffic's ``client``): ``frame`` asks for one frame with
+Three clients (the traffic's ``client``): ``frame`` asks for one frame with
 ``Renderer.render_device`` and waits for it before asking for the next;
 ``batch`` keeps ``in_flight`` ``Renderer.render_batch`` calls of ``batch``
 poses in flight, waiting on the event of the call ``in_flight`` back before
-it issues the next.
+it issues the next; ``app`` drives the app's own loop, one
+``FrameLoop.step`` a call with the walk's input for that frame, in the
+walk's order from a frame the seed draws (``AppClient``).
 """
 
 from __future__ import annotations
@@ -65,18 +67,22 @@ class Window:
 
 class Reservoir:
     """A uniform sample of ``k`` calls of a window, drawn from ``seed``
-    (algorithm R): each entry (poses (B, 3, 4), pixels, depth)."""
+    (algorithm R): each entry (poses (B, 3, 4), pixels, depth).
+    ``own(out, j)`` makes a call kept in entry j the sample's own; it runs
+    only for a call that is kept."""
 
-    def __init__(self, k: int, seed: int) -> None:
+    def __init__(self, k: int, seed: int,
+                 own: Optional[Callable] = None) -> None:
         self.k, self.rng, self.items = k, random.Random(seed), []
+        self.own = own or (lambda out, j: out)
 
     def __call__(self, n: int, poses, out) -> None:
         if n < self.k:
-            self.items.append((poses, *out))
+            self.items.append((poses, *self.own(out, n)))
             return
         j = self.rng.randrange(n + 1)
         if j < self.k:
-            self.items[j] = (poses, *out)
+            self.items[j] = (poses, *self.own(out, j))
 
 
 def call_poses(poses: np.ndarray, order: np.ndarray, batch: int,
@@ -89,6 +95,8 @@ def call_poses(poses: np.ndarray, order: np.ndarray, batch: int,
 
 class Client:
     """The cell's traffic against one ``Renderer``."""
+
+    own = None            # what the entry points return is the caller's
 
     def __init__(self, renderer, poses: np.ndarray, order: np.ndarray,
                  traffic: dict) -> None:
@@ -145,6 +153,93 @@ class Client:
         win.frames = win.calls * self.batch
         return win
 
+    def poses_of(self, n: int) -> np.ndarray:
+        """The (B, 3, 4) poses of a run's n-th call."""
+        return self.calls[n % len(self.calls)]
+
+
+def _pose_state(cam: flight.Camera) -> dict:
+    """The benchmark camera's state in the form of the app's resume API
+    (``camera.Camera.load_pose_state``)."""
+    x, y, z = cam.axes
+    return {"position": cam.position.tolist(), "axis_x": x.tolist(),
+            "axis_y": y.tolist(), "axis_z": z.tolist(),
+            "mouse": cam.mouse.tolist()}
+
+
+class AppClient:
+    """The app's own loop (``app.FrameLoop``) flying the walk in sequence.
+
+    A call is one ``FrameLoop.step`` with the walk's input for that frame
+    (``flight.inputs``: the keys and the accumulated mouse); it ends when
+    ``step`` returns its host buffer. Every run starts at the walk frame
+    ``start`` and flies on frame after frame. At its start, and each time
+    the walk wraps, the client sets the app's camera to the benchmark's
+    camera before that frame through the app's resume API
+    (``FrameLoop.camera.load_pose_state``); in between the app's camera
+    follows the inputs on its own. A kept call's poses are the benchmark's
+    pose of that frame, so the app's camera is held to the benchmark's.
+
+    ``step`` hands out the same host buffer again two frames later, so a
+    kept call is copied into one of ``keep`` host buffers made and written
+    once here, at set-up: the window allocates nothing of the benchmark's
+    on the host beside the program's own allocations."""
+
+    batch = 1
+
+    def __init__(self, loop, frames: List[flight.Frame], poses: np.ndarray,
+                 start: int, keep: int) -> None:
+        from swift3drenderer_tpu_torch import Input
+
+        self.loop, self.poses, self.start = loop, poses, start
+        self.inputs = [Input(*f.keys, mouse=(float(f.mouse[0]),
+                                             float(f.mouse[1])))
+                       for f in frames]
+        self.states = [_pose_state(f.before) for f in frames]
+        self.kept = [np.zeros((loop.height, loop.width), np.int32)
+                     for _ in range(keep)]
+        for buf in self.kept:
+            buf.fill(1)                 # its pages, before any window
+
+    def own(self, out, j: int) -> tuple:
+        """Call ``out`` = (host buffer,) kept in entry j: its copy as int32
+        pixels, and no depth."""
+        np.copyto(self.kept[j], out[0].view(np.int32))
+        return torch.from_numpy(self.kept[j]), None
+
+    def run(self, *, seconds: float = 0.0, calls: int = 0,
+            keep: Optional[Callable] = None,
+            clock: Optional[clocks.Clocks] = None) -> Window:
+        """As ``Client.run``: calls until ``seconds`` have passed and at
+        least ``calls`` are done."""
+        win = Window()
+        if clock is not None:
+            clock.start()
+        deadline = time.perf_counter() + seconds
+        t0 = time.perf_counter()
+        while True:
+            i = (self.start + win.calls) % len(self.inputs)
+            if win.calls == 0 or i == 0:
+                self.loop.camera.load_pose_state(self.states[i])
+            h0 = time.perf_counter()
+            buf = self.loop.step(self.inputs[i])
+            now = time.perf_counter()
+            win.entry_s += now - h0
+            if keep:
+                keep(win.calls, self.poses[i:i + 1], (buf,))
+            win.calls += 1
+            if clock is not None:
+                clock.tick(now, win.calls, self.batch, win.entry_s)
+            if win.calls >= calls and now >= deadline:
+                break
+        win.seconds = time.perf_counter() - t0
+        win.frames = win.calls
+        return win
+
+    def poses_of(self, n: int) -> np.ndarray:
+        """The (1, 3, 4) pose of a run's n-th call."""
+        return self.poses[(self.start + n) % len(self.poses)][None]
+
 
 @dataclasses.dataclass
 class Run:
@@ -191,7 +286,7 @@ def _render_config(config: dict, sampling: str):
                         sampling=sampling)
 
 
-def _traced_window(client: Client, calls: int, attempts: int = 3):
+def _traced_window(client, calls: int, attempts: int = 3):
     """The trace of ``calls`` calls between two marker kernels, after as
     many calls under the profiler to let it settle, and the attempts it
     took. CUPTI drops activity records now and then (a marker was lost in
@@ -237,10 +332,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     poses = flight.walk(tr["flight"])
     order = flight.order(len(poses), seed)
     mark("scene_and_flight")
-    r = Renderer(Scene(**scene), config=_render_config(cell.config,
-                                                       tr["sampling"]),
-                 device="cuda")
-    client = Client(r, poses, order, tr)
+    config = _render_config(cell.config, tr["sampling"])
+    if tr["client"] == "app":
+        from swift3drenderer_tpu_torch.app import FrameLoop
+
+        # The seed draws the walk frame the app's runs start at.
+        client = AppClient(FrameLoop(Scene(**scene), tr["width"], tr["height"],
+                                     config=config, device="cuda"),
+                           flight.inputs(tr["flight"]), poses, int(order[0]),
+                           cell.check["sample_calls"])
+        r = client.loop.renderer
+    else:
+        r = Renderer(Scene(**scene), config=config, device="cuda")
+        client = Client(r, poses, order, tr)
     mark("renderer")
     client.run(calls=1)
     mark("first_call")
@@ -250,7 +354,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     mark("warmup")
     setup_s = time.perf_counter() - t0
 
-    sample = Reservoir(cell.check["sample_calls"], seed)
+    sample = Reservoir(cell.check["sample_calls"], seed, client.own)
     window = client.run(seconds=seconds, calls=1, keep=sample, clock=clock)
     if r.graphs.captures != captures:
         raise RuntimeError(f"{r.graphs.captures - captures} graph capture(s) "
@@ -258,9 +362,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     peak = torch.cuda.max_memory_allocated()
 
     run = Run(cell=cell, setup_s=setup_s, window=window, batch=client.batch)
+    traced = []
     if trace:
         run.trace, run.trace_attempts = _traced_window(client, tr["trace_calls"])
         run.traced_frames = tr["trace_calls"] * client.batch
+        traced = [client.poses_of(n) for n in range(tr["trace_calls"])]
 
     r.graphs.close()
     del r, client
@@ -271,18 +377,18 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     w, h, sampling = tr["width"], tr["height"], tr["sampling"]
     readings, drawn = [], []
     for ms, pix, depth in sample.items:
-        if pix.dim() == 2:                      # a frame client's call
-            pix, depth = pix[None], depth[None]
+        if pix.dim() == 2:                      # a frame or app client's call
+            pix = pix[None]
+            depth = None if depth is None else depth[None]
         for b in range(ms.shape[0]):
             rp, rd, work = ref.render(ms[b], w, h, sampling)
-            readings.append(reference.mismatch(pix[b], depth[b], rp, rd,
-                                               cell.check["tol"],
-                                               cell.check["rtol"]))
+            readings.append(compare(cell.check, pix[b],
+                                    None if depth is None else depth[b],
+                                    rp, rd, ref.background))
             drawn.append(work.drawn)
     if trace:
-        for n in range(tr["trace_calls"]):
-            works = [ref.render(m, w, h, sampling)[2]
-                     for m in call_poses(poses, order, run.batch, n)]
+        for ms in traced:
+            works = [ref.render(m, w, h, sampling)[2] for m in ms]
             run.launches.append(roofline.launch_work(works, w, h, sampling))
         run.card = roofline.peak(torch.cuda.get_device_name())
     line = _line(run, readings, drawn, peak)
@@ -291,6 +397,19 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     line["check"] = line.pop("check")
     return Outcome(line=line, scene=scene, sample=sample.items,
                    readings=readings)
+
+
+def compare(check: dict, pix: torch.Tensor, depth: Optional[torch.Tensor],
+            ref_pix: torch.Tensor, ref_depth: torch.Tensor,
+            background: int) -> float:
+    """A frame's reading against the reference's: ``reference.mismatch``,
+    or ``reference.mismatch_pixels`` where the program hands back no depth
+    (the app's host buffer)."""
+    if depth is None:
+        return reference.mismatch_pixels(pix, ref_pix, background,
+                                         check["tol"])
+    return reference.mismatch(pix, depth, ref_pix, ref_depth, check["tol"],
+                              check["rtol"])
 
 
 def _line(run: Run, readings: List[float], drawn: List[int],

@@ -76,3 +76,23 @@ def idle_share(run) -> Optional[float]:
     if run.trace is None or run.trace.busy_s <= 0:
         return None
     return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
+
+
+def _device_to_host(run):
+    """The traced window's copies from the card to the host; None where it
+    has none (or the run was not traced)."""
+    if run.trace is None or not run.traced_frames:
+        return None
+    return run.trace.device_to_host() or None
+
+
+def readback_device_us(run) -> Optional[float]:
+    """Device microseconds a frame of the copies from the card to the host."""
+    c = _device_to_host(run)
+    return None if c is None else sum(b - a for a, b, _, _ in c) / run.traced_frames
+
+
+def readback_bytes(run) -> Optional[float]:
+    """Bytes a frame copied from the card to the host."""
+    c = _device_to_host(run)
+    return None if c is None else sum(n for _, _, _, n in c) / run.traced_frames

@@ -353,3 +353,17 @@ def mismatch(pix: torch.Tensor, depth: torch.Tensor, ref_pix: torch.Tensor,
     off |= (depth > 0) != (ref_depth > 0)
     off |= (depth - ref_depth).abs() > rtol * ref_depth.abs()
     return float(off.float().mean())
+
+
+def mismatch_pixels(pix: torch.Tensor, ref_pix: torch.Tensor, background: int,
+                    tol: int = 1) -> float:
+    """``mismatch`` for a frame handed back without its depth: a colour
+    channel off by more than ``tol``, or a pixel covered on one side only,
+    a pixel being covered where it is not the background colour."""
+    a = pix.to(ref_pix.device, torch.int64)
+    b = ref_pix.to(torch.int64)
+    off = torch.zeros_like(a, dtype=torch.bool)
+    for sh in (16, 8, 0):
+        off |= (((a >> sh) & 0xFF) - ((b >> sh) & 0xFF)).abs() > tol
+    off |= (a != background) != (b != background)
+    return float(off.float().mean())

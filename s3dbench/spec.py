@@ -8,11 +8,20 @@ the harness finds each by name:
 - the traffic mix is ``traffic/<traffic>.json``;
 - the cell's correctness limits are ``checks/<workload>.json``;
 - every metric, end-to-end or per-layer, is read by ``metrics/<name>.py``.
+
+A cell held back from ``BENCHMARK.json`` is ``held/<workload>.json``: its
+``workloads`` entry (``workload``) and every metric entry it reports
+(``end_to_end``, ``per_layer``), in ``BENCHMARK.json``'s form without
+``workloads`` keys, and why it is held (``held``). It runs by name like a
+listed cell, and its
+configuration is a ``configs`` entry of ``BENCHMARK.json``; only a listed
+cell is ever checked against a bound.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import importlib.util
 import json
 import os
@@ -53,17 +62,29 @@ def _applies(metric: dict, cell: str, reported: set) -> bool:
     return metric.get("moves", None) in reported if "moves" in metric else True
 
 
+def held() -> List[str]:
+    """The names of the cells held back from ``BENCHMARK.json``."""
+    return sorted(os.path.basename(p)[:-len(".json")]
+                  for p in glob.glob(os.path.join(HERE, "held", "*.json")))
+
+
 def cell(name: str) -> Cell:
-    """The workload ``name`` of ``BENCHMARK.json``, resolved."""
+    """The workload ``name`` of ``BENCHMARK.json``, or the held cell
+    ``name``, resolved."""
     spec = benchmark()
     found = [w for w in spec["workloads"] if w["name"] == name]
-    if not found:
-        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
-    w = found[0]
+    if found:
+        w = found[0]
+        e2e = [m for m in spec["end_to_end"] if _applies(m, name, set())]
+        reported = {m["name"] for m in e2e}
+        layer = [m for m in spec["per_layer"] if _applies(m, name, reported)]
+    elif name in held():
+        entry = _load(os.path.join(HERE, "held", name + ".json"))
+        w, e2e, layer = (entry["workload"], entry["end_to_end"],
+                         entry["per_layer"])
+    else:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json or held/")
     config = [c for c in spec["configs"] if c["name"] == w["config"]][0]
-    e2e = [m for m in spec["end_to_end"] if _applies(m, name, set())]
-    reported = {m["name"] for m in e2e}
-    layer = [m for m in spec["per_layer"] if _applies(m, name, reported)]
     return Cell(name=name, config_name=w["config"], traffic_name=w["traffic"],
                 chips=int(w["chips"]),
                 config=_load(os.path.join(ROOT, config["file"])),

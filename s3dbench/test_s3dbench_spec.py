@@ -33,10 +33,16 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def _held(name):
+    return spec._load(os.path.join(spec.HERE, "held", name + ".json"))
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]]
+                         + spec.held())
 def test_workload_resolves_by_name(workload):
     cell = spec.cell(workload)
-    entry = [w for w in BENCH["workloads"] if w["name"] == workload][0]
+    entry = ([w for w in BENCH["workloads"] if w["name"] == workload]
+             or [_held(workload)["workload"]])[0]
     assert cell.config_name == entry["config"]
     assert cell.traffic_name == entry["traffic"]
     assert cell.config["name"] == entry["config"]
@@ -96,7 +102,35 @@ def test_every_metric_has_a_reader_and_every_reader_a_metric():
     files = {os.path.basename(p)[:-3]
              for p in glob.glob(os.path.join(spec.HERE, "metrics", "*.py"))}
     names = {m["name"] for k in ("end_to_end", "per_layer") for m in BENCH[k]}
+    names |= {m["name"] for w in spec.held() for k in ("end_to_end", "per_layer")
+              for m in _held(w)[k]}
     assert files == names
+
+
+@pytest.mark.parametrize("workload", spec.held())
+def test_a_held_cell_is_in_the_form_benchmark_json_takes(workload):
+    held = _held(workload)
+    assert set(held) == {"held", "workload", "end_to_end", "per_layer"}
+    assert 1 <= len(held["held"]) <= 200
+    assert workload not in [w["name"] for w in BENCH["workloads"]]
+    w = held["workload"]
+    assert w["name"] == workload
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    assert w["config"] in [c["name"] for c in BENCH["configs"]]
+    assert NAME.match(w["traffic"]) and 1 <= len(w["why"]) <= 200
+    listed = {m["name"]: m for k in ("end_to_end", "per_layer")
+              for m in BENCH[k]}
+    for key, fields in (("end_to_end", {"name", "unit", "better", "bound",
+                                        "source"}),
+                        ("per_layer", {"name", "unit", "better", "source",
+                                       "layer", "moves"})):
+        for m in held[key]:
+            assert set(m) == fields and NAME.match(m["name"])
+            assert UNIT.match(m["unit"])
+            if m["name"] in listed:     # a listed metric, as it is listed
+                same = {k: v for k, v in listed[m["name"]].items()
+                        if k != "workloads"}
+                assert m == same
 
 
 @pytest.mark.parametrize("path", MODULES, ids=os.path.basename)

@@ -10,7 +10,8 @@ that the benchmark launches around the traced calls (``mark``): from the end
 of the first to the start of the last. The device's activity is every
 kernel, copy and fill the profiler saw on the card inside it (a replayed
 CUDA graph shows each of its kernels); the host's is the CUDA runtime and
-driver calls the profiler saw.
+driver calls the profiler saw. Each copy inside it also keeps the bytes it
+moved (``copies``).
 """
 
 from __future__ import annotations
@@ -85,6 +86,11 @@ class Trace:
             for e in events if e.get("cat") in DEVICE_CATS
             and MARKER not in e.get("name", "")
             and e["ts"] < self.t1 and e["ts"] + e["dur"] > self.t0]
+        self.copies = [
+            (max(e["ts"], self.t0), min(e["ts"] + e["dur"], self.t1),
+             e["name"], int(e.get("args", {}).get("bytes", 0)))
+            for e in events if e.get("cat") == "gpu_memcpy"
+            and e["ts"] < self.t1 and e["ts"] + e["dur"] > self.t0]
 
     @property
     def window_s(self) -> float:
@@ -94,6 +100,11 @@ class Trace:
         """The kernels inside the window: the raster kernels, or all others."""
         return [d for d in self.device if d[3] == "kernel"
                 and bool(RASTER.search(d[2])) == raster]
+
+    def device_to_host(self) -> List[Tuple[float, float, str, int]]:
+        """The copies from the card to the host inside the window: (start,
+        end, name, bytes)."""
+        return [c for c in self.copies if "DtoH" in c[2]]
 
     def busy(self) -> List[Tuple[float, float]]:
         return _merge([(a, b) for a, b, _, _ in self.device])
